@@ -17,10 +17,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      CNN (V=64 devices, batch 32, 32x32x3 images, dropout on), 3 rounds
      of ``fedcgd-fscd`` and 3 of ``fedcgd-gs`` with
      ``scheduler_backend="torch"``; every round must have finite losses,
-     2 host syncs and the numpy solver's mask on the same Problem, and
+     2 host syncs, the numpy solver's mask on the same Problem and
+     Eq. 10 sigmas (from the ``persample_gradnorm`` kernel) within
+     atol 1e-3 + rtol 1e-3 of the closed form on the same features, and
      every kernel must have been launched in that run; then one more
-     round of each under ``torch.profiler`` (the device's busy share of
-     the round and its longest kernels);
+     round of each, held to the same checks, under ``torch.profiler``
+     (the device's busy share of the round and its longest kernels);
   5. times each kernel at the shapes of its last main-path launch beside
      its plain version, one library call where one computes the same
      function, and the least time the card could take (its bound):
@@ -46,6 +48,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+SIGMA_ATOL = SIGMA_RTOL = 1e-3  # the round's sigmas vs the closed form
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
 TPU_KERNELS = {
@@ -157,6 +160,20 @@ def time_ms(torch, fn, reps=7, inner=50):
     return statistics.median(out)
 
 
+def profiler_works(torch) -> bool:
+    """Whether ``torch.profiler`` can trace the card here, from one
+    traced no-op.  Only this probe is guarded: the profiled work itself
+    runs outside any ``try``, so its failures end the script."""
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"profiler unavailable, device times not measured: {e}")
+        return False
+    return True
+
+
 def device_ms(torch, fn, n=50):
     """Summed device time of every kernel ``fn`` launches, per call, from
     a ``torch.profiler`` trace (None when the trace holds no device
@@ -164,14 +181,10 @@ def device_ms(torch, fn, n=50):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError as e:           # profiler unavailable: not measured
-        log(f"profiler: {e}")
-        return None
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
         total_us += getattr(ev, "self_device_time_total",
@@ -289,7 +302,38 @@ def phase_scheduler(torch, dev):
         f"over {int(c['sched.solve_many_calls.torch'].value)} batched solves")
 
 
-def phase_main_path(torch, dev):
+def check_round(torch, tr, solve, tag, rec) -> tuple:
+    """Hold one main-path round to the numpy solver's mask and iteration
+    count on the same Problem, finite losses, 2 host syncs, and its
+    kernel-computed Eq. 10 sigmas to the closed form on the same
+    features; returns the sigmas' (max abs error, max relative error,
+    largest closed-form sigma)."""
+    import numpy as np
+    from repro_torch.core import estimation as E
+    from repro_torch.fl.rounds import _cnn_features_logits
+    prob, sched = tr.solved[-1]
+    want = solve(prob)
+    require(np.array_equal(want.mask, sched.mask)
+            and want.iterations == sched.iterations,
+            f"{tag}: mask differs from numpy")
+    require(np.isfinite(rec["mean_local_loss"]), f"{tag}: loss not finite")
+    require(tr.last_round_host_syncs == 2,
+            f"{tag}: {tr.last_round_host_syncs} host syncs")
+    params, images, labels, sigma = tr.sigmas[-1]
+    V, b = labels.shape
+    feats, logits = _cnn_features_logits(
+        params, tr.model.cfg, images.reshape((V * b,) + images.shape[2:]))
+    closed = E.sigma_hat_lastlayer(feats.reshape(V, b, -1),
+                                   logits.reshape(V, b, -1), labels)
+    err = (sigma - closed).abs()
+    require(bool((err <= SIGMA_ATOL + SIGMA_RTOL * closed.abs()).all()),
+            f"{tag}: sigma max abs err {float(err.max()):.3g} against the "
+            f"closed form")
+    return (float(err.max()), float((err / closed.abs()).max()),
+            float(closed.abs().max()))
+
+
+def phase_main_path(torch, dev, prof_ok):
     import numpy as np
     from repro_torch.configs.paper_cnn import PAPER_CNN_CIFAR10
     from repro_torch.core import scheduling as S
@@ -301,12 +345,18 @@ def phase_main_path(torch, dev):
     from repro_torch.obs import ObsConfig
 
     class CheckedTrainer(FederatedTrainer):
-        """Keeps every (Problem, Schedule) the round solved."""
+        """Keeps every (Problem, Schedule) the round solved, and the
+        inputs and result of every Eq. 10 sigma call."""
 
         def _schedule(self, prob, *a):
             sched = super()._schedule(prob, *a)
             self.solved.append((prob, sched))
             return sched
+
+        def _sigma_all(self, params, images, labels):
+            sigma = super()._sigma_all(params, images, labels)
+            self.sigmas.append((params, images, labels, sigma))
+            return sigma
 
     t0 = time.perf_counter()
     ds = synthetic_image_dataset(num_classes=10, num_per_class=500,
@@ -319,6 +369,7 @@ def phase_main_path(torch, dev):
         f"32x32x3, 64 devices ({time.perf_counter() - t0:.2f} s)")
 
     trainers = {}
+    sigma_err = []
     common.reset_launches()
     for sched_name, solve in (("fedcgd-fscd", S.fscd),
                               ("fedcgd-gs", S.greedy_scheduling)):
@@ -327,19 +378,11 @@ def phase_main_path(torch, dev):
                        scheduler_backend="torch", seed=0, eval_every=3,
                        obs=ObsConfig(enabled=True, ring_size=16))
         tr = CheckedTrainer(model, train, test, parts, cfg)
-        tr.solved = []
+        tr.solved, tr.sigmas = [], []
         for j in range(3):
             rec = tr.run_round(j)
-            prob, sched = tr.solved[-1]
-            want = solve(prob)
-            require(np.array_equal(want.mask, sched.mask)
-                    and want.iterations == sched.iterations,
-                    f"{sched_name} round {j}: mask differs from numpy")
-            require(np.isfinite(rec["mean_local_loss"]),
-                    f"{sched_name} round {j}: loss not finite")
-            require(tr.last_round_host_syncs == 2,
-                    f"{sched_name} round {j}: "
-                    f"{tr.last_round_host_syncs} host syncs")
+            sigma_err.append(check_round(
+                torch, tr, solve, f"{sched_name} round {j}", rec))
         require(all(bool(torch.isfinite(p).all())
                     for p in tr.params.values()),
                 f"{sched_name}: params not finite")
@@ -357,34 +400,38 @@ def phase_main_path(torch, dev):
                 f"{r['host_syncs']}")
         log(f"{sched_name}: {syncs / calls:.1f} scheduler host syncs per "
             f"solve ({int(calls)} solves)")
-        trainers[sched_name] = tr
+        trainers[sched_name] = (tr, solve)
     launches = dict(common.LAUNCHES)
     shapes = dict(common.LAST_SHAPES)
     log(f"main path launches: {launches}")
     for name in TPU_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the main path")
-    for sched_name, tr in trainers.items():
-        profile_round(torch, sched_name, tr)
+    if prof_ok:
+        for sched_name, (tr, solve) in trainers.items():
+            sigma_err.append(profile_round(torch, sched_name, tr, solve))
+    abs_err, rel_err, top = (max(e[i] for e in sigma_err) for i in range(3))
+    log(f"main path sigmas (persample_gradnorm kernel) vs closed form: "
+        f"max abs err {abs_err:.3g}, max rel err {rel_err:.3g}, largest "
+        f"sigma {top:.4g}")
     return launches, shapes
 
 
-def profile_round(torch, sched_name, tr):
+def profile_round(torch, sched_name, tr, solve) -> tuple:
     """One more round (index 4: no evaluation in it) under
-    ``torch.profiler``: the device's busy share of the round's wall time
-    (summed kernel and copy time over the host clock, the profiler's own
-    cost included, so a lower bound) and the kernels that took longest."""
+    ``torch.profiler``, held to ``check_round``'s checks: the device's
+    busy share of the round's wall time (summed kernel and copy time
+    over the host clock, the profiler's own cost included, so a lower
+    bound) and the kernels that took longest.  Returns the round's
+    sigma errors."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.run_round(4)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    except RuntimeError as e:           # profiler unavailable: not measured
-        log(f"{sched_name} profiled round: profiler failed ({e})")
-        return
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rec = tr.run_round(4)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    err = check_round(torch, tr, solve, f"{sched_name} profiled round", rec)
     evs = sorted((e for e in prof.key_averages()
                   if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
@@ -394,9 +441,10 @@ def profile_round(torch, sched_name, tr):
         f"{sum(e.count for e in evs)} device ops; longest: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
             f"x{e.count}" for e in evs[:6]))
+    return err
 
 
-def phase_timing(torch, dev, launches, shapes):
+def phase_timing(torch, dev, launches, shapes, prof_ok):
     from repro_torch.kernels import ref
     from repro_torch.kernels.persample_gradnorm import (
         persample_gradnorm_cuda_batched)
@@ -440,8 +488,9 @@ def phase_timing(torch, dev, launches, shapes):
                      "launches": int(launches[name]), "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms,
-                     "device_ms": device_ms(torch, kern),
-                     "plain_device_ms": device_ms(torch, plain),
+                     "device_ms": device_ms(torch, kern) if prof_ok else None,
+                     "plain_device_ms": (device_ms(torch, plain)
+                                         if prof_ok else None),
                      "shape": [list(s) for s in shp]})
     log("kernels: " + "; ".join(
         f"{r['name']} median {r['ms']:.4f} ms per call, device "
@@ -468,11 +517,12 @@ def main() -> int:
         t0 = time.perf_counter()
         fn(torch, dev)
         log(f"[{name}] done in {time.perf_counter() - t0:.2f} s")
+    prof_ok = profiler_works(torch)
     t0 = time.perf_counter()
-    launches, shapes = phase_main_path(torch, dev)
+    launches, shapes = phase_main_path(torch, dev, prof_ok)
     log(f"[main path] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    rows = phase_timing(torch, dev, launches, shapes)
+    rows = phase_timing(torch, dev, launches, shapes, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": rows}))

@@ -249,7 +249,7 @@ SOLVE_MANY_ALGORITHMS = ("gs", "fscd", "cd")
 
 def solve_many(problems: Sequence[Problem], algorithm: str = "fscd",
                backend: str = "torch", max_inner: int = 200,
-               kernels: Optional[bool] = None, obs=None,
+               obs=None,
                device=None) -> List[Schedule]:
     """Solve a batch of same-shaped Problems.
 
@@ -259,10 +259,9 @@ def solve_many(problems: Sequence[Problem], algorithm: str = "fscd",
     whole batch).  ``algorithm="cd"`` has no batched implementation and
     always uses the numpy loop.
 
-    ``kernels`` routes the torch backend's f32 candidate scans through
-    the ``wemd_add`` / ``wemd_swap`` kernels (None = auto: on when the
-    device is CUDA; on a CPU device the kernels' plain versions run).
-    Scheduling decisions still go through the exact-f64 top-K
+    The torch backend's f32 candidate scans run the ``wemd_add`` /
+    ``wemd_swap`` kernels on a CUDA device and their plain versions on
+    the CPU.  Scheduling decisions still go through the exact-f64 top-K
     re-evaluation, so masks stay bitwise-equal to numpy.
 
     ``obs`` is a ``repro_torch.obs.Obs`` facade: when enabled, the
@@ -283,11 +282,11 @@ def solve_many(problems: Sequence[Problem], algorithm: str = "fscd",
         from repro_torch.obs import DEFAULT as obs
     if not obs.enabled:
         return _solve_many_impl(problems, algorithm, backend, max_inner,
-                                kernels, device)[0]
+                                device)[0]
     with obs.span(f"solve_many.{backend}", algorithm=algorithm,
                   batch=len(problems)):
         scheds, syncs = _solve_many_impl(problems, algorithm, backend,
-                                         max_inner, kernels, device)
+                                         max_inner, device)
     m = obs.metrics
     m.counter(f"sched.solve_many_calls.{backend}").inc()
     m.counter("sched.problems_total").inc(len(problems))
@@ -299,7 +298,7 @@ def solve_many(problems: Sequence[Problem], algorithm: str = "fscd",
 
 def _solve_many_impl(problems: List[Problem], algorithm: str,
                      backend: str, max_inner: int,
-                     kernels: Optional[bool], device):
+                     device):
     """(schedules, device->host syncs the solve made)."""
     if backend == "numpy" or algorithm == "cd":
         fn = {"gs": greedy_scheduling, "fscd": fscd,
@@ -309,9 +308,8 @@ def _solve_many_impl(problems: List[Problem], algorithm: str,
     from repro_torch.device import resolve_device
     dev = resolve_device(device)
     if algorithm == "gs":
-        return ST.solve_many_gs(problems, kernels=kernels, device=dev)
-    return ST.solve_many_fscd(problems, max_inner=max_inner,
-                              kernels=kernels, device=dev)
+        return ST.solve_many_gs(problems, device=dev)
+    return ST.solve_many_fscd(problems, max_inner=max_inner, device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -21,11 +21,11 @@ in float64 in the fixed left-to-right class order of
 ``core/wemd.py:class_sum``, with ties broken by device index exactly
 like ``np.argmin``.  Where the K-th candidate is within f32 error of the
 best, the whole row is re-evaluated instead, so a group of near-tied
-candidates is never cut at rank K.  With ``kernels`` on (the default on a CUDA device) the
-f32 scans are the hand-written ``wemd_add`` / ``wemd_swap`` kernels;
-otherwise the add row is evaluated in f64 directly and the swap matrix
-by plain f32 torch.  Every accept/swap decision goes through f64, so the
-masks stay bitwise-equal to numpy either way.
+candidates is never cut at rank K.  The f32 scans go through
+``kernels.ops``: the hand-written ``wemd_add`` / ``wemd_swap`` kernels
+on a CUDA device, their plain versions on the CPU.  Every accept/swap
+decision goes through f64, so the masks stay bitwise-equal to numpy on
+either device.
 
 The loops are Python loops; each step reads two flags from the device
 (any lane live, any row needing the full re-evaluation) in one
@@ -33,7 +33,7 @@ device->host copy, and each solve returns how many copies it made.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,13 +45,6 @@ from repro_torch.kernels import ops
 _LANE_BUCKET = 32          # min lane-batch granule (see _bucket)
 _TOP_K = 16
 f64 = torch.float64
-
-
-def _use_kernels(kernels: Optional[bool], device: torch.device) -> bool:
-    """Kernel routing: explicit override wins, else on for CUDA."""
-    if kernels is not None:
-        return bool(kernels)
-    return device.type == "cuda"
 
 
 def _wsum(x: torch.Tensor, cw: torch.Tensor) -> torch.Tensor:
@@ -84,8 +77,7 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # Algorithm 1 (GS), batched over problems
 
 
-def _gs_batch(p_dev, gd, cw, sigma, batch_size, min_bw, total_bw, w_cur,
-              use_kernels: bool):
+def _gs_batch(p_dev, gd, cw, sigma, batch_size, min_bw, total_bw, w_cur):
     B, V, C = p_dev.shape
     dev = p_dev.device
     feas = (min_bw >= 0) & (min_bw <= total_bw[:, None])
@@ -103,37 +95,27 @@ def _gs_batch(p_dev, gd, cw, sigma, batch_size, min_bw, total_bw, w_cur,
     while True:
         cand = feas & ~mask & (min_bw <= (total_bw - used)[:, None] + 1e-9)
         size = mask.sum(dim=1).to(f64)
-        flags = [active.any()]
-        if use_kernels:
-            # f32 add row from the kernel, ranked; the best K (or, where
-            # that could cut a near-tie, all V) re-evaluated in f64
-            w32 = torch.where(cand, ops.wemd_add(p_sum, p_dev, gd, cw, size),
-                              torch.inf)
-            order, trunc = _rank(w32, cw, K)
-            flags.append(trunc)
+        # f32 add row (the kernel on CUDA), ranked; the best K (or,
+        # where that could cut a near-tie, all V) re-evaluated in f64
+        w32 = torch.where(cand, ops.wemd_add(p_sum, p_dev, gd, cw, size),
+                          torch.inf)
+        order, trunc = _rank(w32, cw, K)
         syncs += 1
-        flags = torch.stack(flags).cpu().tolist()
+        flags = torch.stack([active.any(), trunc]).cpu().tolist()
         if not flags[0]:
             break
         act = active & cand.any(dim=1)
         iters = iters + act.to(torch.int32)
-        if use_kernels:
-            topk = order[:, :V if flags[1] else K]
-            new_k = (p_sum[:, None, :] + _rows(p_dev, topk)) \
-                / (size[:, None, None] + 1.0)
-            w64k = _wsum(torch.abs(new_k - gd[:, None, :]), cw[:, None, :])
-            valid_k = torch.gather(cand, 1, topk)
-            w64k = torch.where(valid_k, w64k, inf)
-            wk = w64k.min(dim=1).values
-            # numpy argmin tie-break: min device index among exact minima
-            k = torch.where(valid_k & (w64k == wk[:, None]), topk,
-                            V).min(dim=1).values.clamp(max=V - 1)
-        else:
-            new = (p_sum[:, None, :] + p_dev) / (size[:, None, None] + 1.0)
-            w_new = _wsum(torch.abs(new - gd[:, None, :]), cw[:, None, :])
-            w_new = torch.where(cand, w_new, inf)
-            k = torch.argmin(w_new, dim=1)       # first index among minima
-            wk = torch.gather(w_new, 1, k[:, None])[:, 0]
+        topk = order[:, :V if flags[1] else K]
+        new_k = (p_sum[:, None, :] + _rows(p_dev, topk)) \
+            / (size[:, None, None] + 1.0)
+        w64k = _wsum(torch.abs(new_k - gd[:, None, :]), cw[:, None, :])
+        valid_k = torch.gather(cand, 1, topk)
+        w64k = torch.where(valid_k, w64k, inf)
+        wk = w64k.min(dim=1).values
+        # numpy argmin tie-break: min device index among exact minima
+        k = torch.where(valid_k & (w64k == wk[:, None]), topk,
+                        V).min(dim=1).values.clamp(max=V - 1)
         pos = size > 0
         inv_sqrt = torch.where(
             pos, 1.0 / torch.sqrt(torch.where(pos, size, 1.0)), inf)
@@ -162,7 +144,7 @@ def _gs_batch(p_dev, gd, cw, sigma, batch_size, min_bw, total_bw, w_cur,
 
 def _fscd_phase(p_dev, gd, cw, bw, feas, total_bw, s_lane, members, mask,
                 p_sum, used, w_cur, act, iters, max_inner: int,
-                phase_steps: int, use_kernels: bool):
+                phase_steps: int):
     L, V, C = p_dev.shape
     R = members.shape[1]
     dev = p_dev.device
@@ -177,19 +159,11 @@ def _fscd_phase(p_dev, gd, cw, bw, feas, total_bw, s_lane, members, mask,
         live = act & (iters < max_inner)
         # float32 scan of the [R, V] swap matrix, then an exact float64
         # re-evaluation (numpy's op order) of the K best candidates — or
-        # of all of them where that could cut a group of near-ties
-        if use_kernels:
-            # dense [L,V,V] f32 swap matrix from the kernel, gathered
-            # down to the member rows
-            w_dense = ops.wemd_swap(p_sum, p_dev, gd, cw, sf_safe)
-            w32 = torch.gather(w_dense, 1,
-                               members[:, :, None].expand(L, R, V))
-        else:
-            a = ((p_sum[:, None, :] - _rows(p_dev, members))
-                 / sf_safe[:, None, None] - gd[:, None, :]).float()
-            b = (p_dev / sf_safe[:, None, None]).float()
-            w32 = torch.sum(torch.abs(a[:, :, None, :] + b[:, None, :, :])
-                            * cw[:, None, None, :].float(), dim=-1)
+        # of all of them where that could cut a group of near-ties.
+        # The dense [L,V,V] f32 swap matrix (the kernel on CUDA) is
+        # gathered down to the member rows.
+        w_dense = ops.wemd_swap(p_sum, p_dev, gd, cw, sf_safe)
+        w32 = torch.gather(w_dense, 1, members[:, :, None].expand(L, R, V))
         bw_mem = torch.gather(bw, 1, members)
         bw_new = (used[:, None, None] - bw_mem[:, :, None]) + bw[:, None, :]
         ok = valid_r[:, :, None] & (~mask & feas)[:, None, :] \
@@ -264,7 +238,6 @@ def _stack(problems: Sequence[SCH.Problem]):
 
 
 def solve_many_gs(problems: Sequence[SCH.Problem],
-                  kernels: Optional[bool] = None,
                   device=torch.device("cpu"),
                   ) -> Tuple[List[SCH.Schedule], int]:
     """(schedules, device->host syncs)."""
@@ -277,8 +250,7 @@ def solve_many_gs(problems: Sequence[SCH.Problem],
                    for p in problems])
     masks, iters, syncs = _gs_batch(
         t["p_dev"], t["gd"], t["cw"], t["sigma"], t["batch_size"],
-        t["min_bw"], t["total_bw"], torch.as_tensor(w0, device=device),
-        _use_kernels(kernels, device))
+        t["min_bw"], t["total_bw"], torch.as_tensor(w0, device=device))
     masks, iters = masks.cpu().numpy(), iters.cpu().numpy()
     return ([SCH._make_schedule(p, masks[b], int(iters[b]), "GS")
              for b, p in enumerate(problems)], syncs + 2)
@@ -296,7 +268,6 @@ def _bucket(n: int) -> int:
 def solve_many_fscd(problems: Sequence[SCH.Problem],
                     max_inner: int = 200,
                     phase_steps: int = 4,
-                    kernels: Optional[bool] = None,
                     device=torch.device("cpu"),
                     ) -> Tuple[List[SCH.Schedule], int]:
     """(schedules, device->host syncs)."""
@@ -353,7 +324,6 @@ def solve_many_fscd(problems: Sequence[SCH.Problem],
         # the still-live set on the host, compact, repeat — so the batch
         # shrinks as lanes converge instead of spinning until the
         # slowest lane is done
-        use_k = _use_kernels(kernels, device)
         alive = np.arange(L)
         while alive.size:
             n = alive.size
@@ -364,7 +334,7 @@ def solve_many_fscd(problems: Sequence[SCH.Problem],
             ins = [x[sel] for x in state]
             ins[5] = act_in
             out, s = _fscd_phase(*(x[sel] for x in const), *ins,
-                                 int(max_inner), int(phase_steps), use_k)
+                                 int(max_inner), int(phase_steps))
             syncs += s
             idx = sel[:n]
             for x, o in zip(state, out):

@@ -65,13 +65,12 @@ class FLConfig:
     """One FL experiment (paper Table I + engine knobs).
 
     ``device`` is where the models, the round core and the torch
-    scheduler run (None = the GPU).  On a CUDA device the torch
-    scheduler's f32 candidate scans run in the ``wemd_add`` /
-    ``wemd_swap`` kernels and the round core's Eq. 10 sigmas in one
-    batched ``persample_gradnorm`` launch; on the CPU the scans use
-    plain torch and the sigmas the closed form the reference trainer
-    uses.  ``obs`` configures the observability layer, off by
-    default."""
+    scheduler run (None = the GPU).  The torch scheduler's f32
+    candidate scans go through the ``wemd_add`` / ``wemd_swap`` kernels
+    and the round core's Eq. 10 sigmas through one batched
+    ``persample_gradnorm`` call: the kernels on a CUDA device, their
+    plain versions on the CPU.  ``obs`` configures the observability
+    layer, off by default."""
     num_devices: int = 64
     available_prob: float = 0.3
     batch_size: int = 32
@@ -233,14 +232,15 @@ class FederatedTrainer:
         return tuple(out)
 
     def _sigma_all(self, params, images, labels):
-        """Eq. 10 via the last-layer decomposition on every device's
-        first batch at once: images [V, b, ...], labels [V, b] -> [V]."""
+        """Eq. 10 for the classifier head on every device's first batch
+        at once, through the ``persample_gradnorm`` kernel: images
+        [V, b, ...], labels [V, b] -> [V]."""
         V, b = labels.shape
         feats, logits = _cnn_features_logits(
             params, self.model.cfg, images.reshape((V * b,) + images.shape[2:]))
         return E.sigma_hat_lastlayer(feats.reshape(V, b, -1),
                                      logits.reshape(V, b, -1), labels,
-                                     use_kernel=self.device.type == "cuda")
+                                     use_kernel=True)
 
     # ------------------------------------------------------------------
     def _schedule(self, prob: S.Problem, avail_idx, gains, delta_norms,

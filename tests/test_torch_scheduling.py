@@ -52,11 +52,11 @@ def assert_same(expect, got, tag):
         assert np.isclose(e.objective, g.objective, rtol=0, atol=1e-9)
 
 
-@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("algorithm", ["gs", "fscd"])
 @pytest.mark.parametrize("V", [8, 16, 64])
-def test_engine_matches_reference_numpy(algorithm, V, kernels):
-    rng = np.random.default_rng(1000 + V)
+def test_engine_matches_reference_numpy(algorithm, V, seed):
+    rng = np.random.default_rng([1000 + V, seed])
     probs = [random_problem(rng, V,
                             infeasible_frac=0.2 if t % 3 == 0 else 0.0,
                             cls=RS.Problem)
@@ -64,15 +64,14 @@ def test_engine_matches_reference_numpy(algorithm, V, kernels):
     ref_fn = {"gs": RS.greedy_scheduling, "fscd": RS.fscd}[algorithm]
     expect = [ref_fn(p) for p in probs]
     port_probs = [S.Problem(**vars(p)) for p in probs]
-    got = S.solve_many(port_probs, algorithm, backend="torch",
-                       kernels=kernels, device="cpu")
-    assert_same(expect, got, (algorithm, V, kernels))
+    got = S.solve_many(port_probs, algorithm, backend="torch", device="cpu")
+    assert_same(expect, got, (algorithm, V, seed))
 
 
-@pytest.mark.parametrize("kernels", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
 @pytest.mark.parametrize("algorithm", ["gs", "fscd"])
-def test_engine_matches_port_numpy_on_tied_problems(algorithm, kernels):
-    rng = np.random.default_rng(77)
+def test_engine_matches_port_numpy_on_tied_problems(algorithm, seed):
+    rng = np.random.default_rng([77, seed])
     probs = [tied_problem(rng, V) for V in (19, 19, 23, 64) for _ in range(3)]
     fn = {"gs": S.greedy_scheduling, "fscd": S.fscd}[algorithm]
     expect = [fn(p) for p in probs]
@@ -81,8 +80,8 @@ def test_engine_matches_port_numpy_on_tied_problems(algorithm, kernels):
         by_shape.setdefault(p.num_devices, []).append(i)
     for idx in by_shape.values():
         got = S.solve_many([probs[i] for i in idx], algorithm,
-                           backend="torch", kernels=kernels, device="cpu")
-        assert_same([expect[i] for i in idx], got, (algorithm, kernels))
+                           backend="torch", device="cpu")
+        assert_same([expect[i] for i in idx], got, (algorithm, seed))
 
 
 def test_mixed_feasibility_and_edge_cases():
@@ -93,11 +92,9 @@ def test_mixed_feasibility_and_edge_cases():
     probs.append(dead)
     ref_probs = [RS.Problem(**vars(p)) for p in probs]
     for alg, fn in (("gs", RS.greedy_scheduling), ("fscd", RS.fscd)):
-        for kernels in (False, True):
-            got = S.solve_many(probs, alg, backend="torch", kernels=kernels,
-                               device="cpu")
-            assert_same([fn(p) for p in ref_probs], got, (alg, kernels))
-            assert not got[-1].mask.any()
+        got = S.solve_many(probs, alg, backend="torch", device="cpu")
+        assert_same([fn(p) for p in ref_probs], got, alg)
+        assert not got[-1].mask.any()
 
 
 def test_solve_many_validates_inputs():
