@@ -6,29 +6,47 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
   1. builds the port's kernels from the sources in this checkout: the
-     CUDA C++ ``persample_gradnorm`` with nvcc, the Triton ``wemd_add`` /
-     ``wemd_swap`` on their first launch;
+     four CUDA C++ sources (``persample_gradnorm``, ``flash_attention``,
+     ``wkv``, ``rglru_scan``) with one nvcc each, all at once, the Triton
+     ``wemd_add`` / ``wemd_swap`` on their first launch;
   2. holds every kernel against its plain PyTorch version on the card,
-     at ``tests/test_kernels.py``'s shape sweep and at the round's
-     shapes (``wemd_*`` to 1e-5, sigma to 1e-3, gi_sq to atol 1e-2);
+     at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
+     round's shapes (``wemd_*`` to 1e-5, sigma to 1e-3, gi_sq to atol
+     1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16 atol 3e-2; wkv atol
+     2e-3 with the w=1e-4 case; rglru 1e-5);
   3. solves 50 seeded random P1 problems with the torch scheduler on the
      card and requires the numpy solvers' masks and iteration counts;
-  4. drives the main path: ``FederatedTrainer`` on the full-width paper
-     CNN (V=64 devices, batch 32, 32x32x3 images, dropout on), 3 rounds
-     of ``fedcgd-fscd`` and 3 of ``fedcgd-gs`` with
+  4. drives the FL main path: ``FederatedTrainer`` on the full-width
+     paper CNN (V=64 devices, batch 32, 32x32x3 images, dropout on), 3
+     rounds of ``fedcgd-fscd`` and 3 of ``fedcgd-gs`` with
      ``scheduler_backend="torch"``; every round must have finite losses,
      2 host syncs, the numpy solver's mask on the same Problem and
      Eq. 10 sigmas (from the ``persample_gradnorm`` kernel) within
      atol 1e-3 + rtol 1e-3 of the closed form on the same features, and
-     every kernel must have been launched in that run; then one more
+     every FL kernel must have been launched in that run; then one more
      round of each, held to the same checks, under ``torch.profiler``
      (the device's busy share of the round and its longest kernels);
-  5. times each kernel at the shapes of its last main-path launch beside
-     its plain version, one library call where one computes the same
-     function, and the least time the card could take (its bound):
-     ``ms`` is the median per-call time of back-to-back calls by CUDA
-     events (what a caller pays, launch included), ``device_ms`` the
-     kernels' own device time from a ``torch.profiler`` trace.
+  5. drives the LM serving path through ``repro_torch.serve.generate``:
+     recurrentgemma-2b, then rwkv6-3b, each at published width and full
+     depth in bf16 with seeded random weights, B=4 prompts of 3072
+     tokens (longer than the 2048 window), 32 sampled tokens.  Prefill
+     must launch the attention kernel 8 times and the RG-LRU kernel 18
+     times (recurrentgemma), the WKV kernel 32 times (rwkv6), and decode
+     no kernel; logits must be finite; and a prefill of P tokens plus 8
+     teacher-forced ``serve_step``s (the plain decode route) must agree
+     with one prefill of P+8 tokens (the kernel route), in f32 on each
+     reduced config (2e-3 * scale, the bound of the JAX package's
+     tests/test_models_smoke.py) and in bf16 on the full ones
+     (``BF16_CONSISTENCY``);
+  6. times each kernel at the shapes of its last main-path launch (the
+     LM kernels at their prefill shapes) beside its plain version, one
+     library call where one computes the same function (``cdist`` for
+     the WEMD scans, ``scaled_dot_product_attention`` under the window
+     mask for attention), and the least time the card could take (its
+     bound), and holds it to its plain version there again: ``ms`` is
+     the median per-call time of back-to-back calls by CUDA events (what
+     a caller pays, launch included), ``device_ms`` the kernels' own
+     device time from a ``torch.profiler`` trace.
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -51,25 +69,46 @@ sys.path.insert(0, str(ROOT / "src"))
 SIGMA_ATOL = SIGMA_RTOL = 1e-3  # the round's sigmas vs the closed form
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_FLOPS_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 TPU_KERNELS = {
     "wemd_add": "src/repro/kernels/wemd_swap.py:115",
     "wemd_swap": "src/repro/kernels/wemd_swap.py:74",
     "persample_gradnorm": "src/repro/kernels/persample_gradnorm.py:65",
+    "attention": "src/repro/kernels/flash_attention.py:77",
+    "wkv": "src/repro/kernels/rwkv_scan.py:75",
+    "rglru": "src/repro/kernels/rglru_scan.py:50",
 }
+FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
+CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("triton", "src/repro_torch/kernels/wemd_swap.py"),
     "wemd_swap": ("triton", "src/repro_torch/kernels/wemd_swap.py"),
-    "persample_gradnorm": (
-        "cuda", "src/repro_torch/kernels/csrc/persample_gradnorm.cu"),
+    "persample_gradnorm": ("cuda", CSRC + "persample_gradnorm.cu"),
+    "attention": ("cuda", CSRC + "flash_attention.cu"),
+    "wkv": ("cuda", CSRC + "wkv.cu"),
+    "rglru": ("cuda", CSRC + "rglru_scan.cu"),
 }
+# LM serving phase: batch, prompt (> the 2048 window), sampled tokens,
+# teacher-forced decode steps of the consistency check
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK = 4, 3072, 32, 8
+LM_PREFILL_LAUNCHES = {"recurrentgemma-2b": {"attention": 8, "rglru": 18},
+                       "rwkv6-3b": {"wkv": 32}}
+# prefill (kernel route) vs decode (plain route) at bf16 over the full
+# depth: max abs error over max(1, max |logit|), and relative L2 error.
+# bf16 keeps 8 bits; the decode route rounds attention probabilities to
+# bf16 where the kernel keeps them in f32, and matmuls of other shapes
+# round otherwise.  A reduced-width, 26-layer bf16 recurrentgemma on the
+# CPU gave 0.037 and 0.027; the bounds are about three times that.
+BF16_CONSISTENCY = (0.1, 0.08)
+F32_CONSISTENCY = 2e-3          # tests/test_models_smoke.py's bound
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi(query="name,power.limit") -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return out.stdout.strip()
@@ -106,6 +145,47 @@ def psg_inputs(torch, V, B, d, C, seed, device):
     return h, logits, labels
 
 
+def attn_inputs(torch, B, H, KV, S, T, hd, dtype, seed, device):
+    """q [B,H,S,hd] and k, v [B,KV,T,hd] as views of [B,S,H,hd] memory,
+    the layout the model hands the kernel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(n, heads):
+        return torch.randn((B, n, heads, hd), generator=g, device=device,
+                           dtype=dtype).transpose(1, 2)
+    return draw(S, H), draw(T, KV), draw(T, KV)
+
+
+def wkv_inputs(torch, B, T, H, hd, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=device) * scale
+    w = torch.sigmoid(randn(B, T, H, hd) * 2) * 0.6 + 0.39
+    return (randn(B, T, H, hd), randn(B, T, H, hd, scale=0.3),
+            randn(B, T, H, hd), w, randn(H, hd, scale=0.1),
+            randn(B, H, hd, hd, scale=0.5))
+
+
+def rglru_inputs(torch, B, T, D, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.rand((B, T, D), generator=g, device=device) * 0.199 + 0.8
+    return (a, torch.randn((B, T, D), generator=g, device=device),
+            torch.randn((B, D), generator=g, device=device))
+
+
+def window_mask(torch, S, T, causal, window, device):
+    """[S,T] bool, True where attention_ref lets query q see key k."""
+    qi = torch.arange(S, device=device)[:, None] + (T - S)
+    ki = torch.arange(T, device=device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window > 0:
+        ok &= ki > qi - window
+    return ok
+
+
 def cdist_add(torch, p_sum, p_dev, gd, cw, sizes):
     """wemd_add as one L1 distance: cw >= 0 folds into both sides."""
     s1 = (sizes + 1.0)[:, None, None]
@@ -121,10 +201,34 @@ def cdist_swap(torch, p_sum, p_dev, gd, cw, sizes):
     return a, b
 
 
-def bound(name, shapes):
+def visible_pairs(S, T, causal, window):
+    """(query, key) pairs attention_ref lets through, per (batch, head)."""
+    import numpy as np
+    q = np.arange(S) + (T - S)
+    hi = np.minimum(q, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def bound(name, shapes, itemsize=4):
     """(bound_ms, bound_by): bytes each input read once and each output
-    written once over HBM, operations over the f32 peak."""
-    if name == "wemd_add":
+    written once over HBM, operations over the peak rate of their type
+    (the f32 rate, and bf16 tensor cores for bf16 attention)."""
+    rate = F32_FLOPS_PER_S
+    if name == "attention":
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
+        nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
+        ops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
+        rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    elif name == "wkv":
+        (B, T, H, hd), = shapes
+        nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
+        ops = B * H * T * (5 * hd * hd + 3 * hd)
+    elif name == "rglru":
+        (B, T, D), = shapes
+        nbytes = 4 * (3 * B * T * D + 2 * B * D)
+        ops = 2 * B * T * D
+    elif name == "wemd_add":
         (B, V, C), = shapes
         nbytes = 4 * (3 * B * C + B * V * C + B + B * V)
         ops = 6 * B * V * C
@@ -136,17 +240,29 @@ def bound(name, shapes):
         (V, B, d), (_, _, C) = shapes
         nbytes = 4 * (V * B * d + V * B * C + V * B + V * B + V)
         ops = V * (8 * B * C + 2 * B * d + 2 * B * d * C + 2 * d * C)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_ms(torch, fn, reps=7, inner=50):
-    """Median over ``reps`` of the mean per-call time of ``inner``
-    back-to-back calls, by CUDA events (after a warm-up)."""
-    for _ in range(3):
+def calls_per_rep(torch, fn, most=50, target_s=0.05):
+    """Back-to-back calls that take about ``target_s`` (1 to ``most``),
+    from one timed call after two warm-up calls."""
+    for _ in range(2):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return max(1, min(most, int(target_s / (time.perf_counter() - t0))))
+
+
+def time_ms(torch, fn, reps=7):
+    """Median over ``reps`` of the mean per-call time of back-to-back
+    calls (50, or fewer for a slow call), by CUDA events, after a
+    warm-up."""
+    inner = calls_per_rep(torch, fn)
+    reps = reps if inner > 1 else 3
     out = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -174,22 +290,26 @@ def profiler_works(torch) -> bool:
     return True
 
 
-def device_ms(torch, fn, n=50):
-    """Summed device time of every kernel ``fn`` launches, per call, from
-    a ``torch.profiler`` trace (None when the trace holds no device
-    time): the kernel's own time, without the host's launch path."""
+def device_ms(torch, fn):
+    """Device time of the kernels ``fn`` launches, per call, from a
+    ``torch.profiler`` trace of 50 calls or fewer (None when the trace
+    holds no device time): the kernels' own time, without the host's
+    launch path.  A trace can drop a launch, so each kernel's mean
+    time is weighted by its launches per call (its count over the calls,
+    rounded), not summed and divided by the calls."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
+    n = calls_per_rep(torch, fn)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
-        total_us += getattr(ev, "self_device_time_total",
-                            getattr(ev, "self_cuda_time_total", 0.0))
-    return total_us / n / 1e3 if total_us > 0 else None
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0 and ev.count:
+            total_us += t / ev.count * max(1, round(ev.count / n))
+    return total_us / 1e3 if total_us > 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -197,10 +317,17 @@ def device_ms(torch, fn, n=50):
 
 
 def phase_build(torch, dev):
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import common, ops
+    from repro_torch.kernels import flash_attention as K4
+    from repro_torch.kernels import persample_gradnorm as K3
+    from repro_torch.kernels import rglru_scan as K6
+    from repro_torch.kernels import rwkv_scan as K5
     t0 = time.perf_counter()
-    from repro_torch.kernels.persample_gradnorm import _launcher
-    _launcher()
+    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, at once
+        for f in [pool.submit(m._launcher) for m in (K3, K4, K5, K6)]:
+            f.result()
     t_nvcc = time.perf_counter() - t0
     times = {}
     for name, fn, args in (
@@ -211,9 +338,9 @@ def phase_build(torch, dev):
         fn(*args)
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
-    log(f"build: nvcc persample_gradnorm.cu {t_nvcc:.2f} s "
-        f"(nvcc itself {common.BUILD_SECONDS['persample_gradnorm.cu']:.2f}"
-        f" s); triton first launch wemd_add {times['wemd_add']:.2f} s, "
+    log(f"build: nvcc of 4 sources in parallel {t_nvcc:.2f} s (" + ", ".join(
+        f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items())
+        + f"); triton first launch wemd_add {times['wemd_add']:.2f} s, "
         f"wemd_swap {times['wemd_swap']:.2f} s")
 
 
@@ -259,8 +386,57 @@ def phase_kernel_checks(torch, dev):
         sr, gr = ref.persample_gradnorm_ref(h, logits, labels)
         close("persample_gradnorm", s, sr, 1e-3, 1e-3)
         close("persample_gradnorm.gi_sq", gi, gr, 1e-2, 1e-3)
+    lm_kernel_checks(torch, dev, close)
     log("kernels vs plain: " + ", ".join(
         f"{k} max abs err {v:.3g}" for k, v in worst.items()))
+
+
+def lm_kernel_checks(torch, dev, close):
+    """The LM kernels against their plain versions at
+    ``tests/test_kernels.py``'s sweep and tolerances, plus one case of
+    recurrentgemma's layout (ten query heads on one key head, hd 256)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(B, H, H, S, T, hd, c, w, f32)
+             for B, H, S, T, hd in [(2, 3, 128, 128, 64), (1, 2, 256, 256, 64),
+                                    (2, 2, 100, 100, 32), (1, 2, 64, 192, 64),
+                                    (1, 1, 128, 128, 128), (1, 1, 257, 257, 64)]
+             for c, w in [(True, 0), (True, 32), (False, 0)]]
+    cases += [(1, 2, 2, 128, 128, 64, True, 0, bf16),
+              (2, 10, 1, 300, 300, 256, True, 64, f32),
+              (2, 10, 1, 300, 300, 256, True, 64, bf16)]
+    for i, (B, H, KV, S, T, hd, causal, window, dt) in enumerate(cases):
+        q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dt, 100 + i, dev)
+        out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = ref.attention_ref(q, k, v, causal=causal, window=window)
+        require(out.dtype == dt, "attention output dtype")
+        if dt == f32:
+            close("attention", out, want, 3e-5, 1e-4)
+        else:
+            close("attention.bf16", out.float(), want.float(), 3e-2, 3e-2)
+    for i, (B, T, H, hd) in enumerate([(2, 48, 3, 32), (1, 16, 2, 64),
+                                       (2, 100, 2, 16), (1, 64, 1, 64)]):
+        args = wkv_inputs(torch, B, T, H, hd, 200 + i, dev)
+        y, st = wkv_cuda(*args)
+        yr, sr = ref.wkv_ref(*args)
+        close("wkv", y, yr, 2e-3, 1e-3)
+        close("wkv.state", st, sr, 2e-3, 1e-3)
+    r, k, v, _, u, _ = wkv_inputs(torch, 1, 32, 1, 16, 210, dev)
+    w = torch.full_like(r, 1e-4)                    # extreme decay
+    s0 = torch.zeros((1, 1, 16, 16), device=dev)
+    y, _ = wkv_cuda(r, k, v, w, u, s0)
+    require(bool(torch.isfinite(y).all()), "wkv: not finite at w=1e-4")
+    close("wkv", y, ref.wkv_ref(r, k, v, w, u, s0)[0], 1e-3, 1e-3)
+    for i, (B, T, D) in enumerate([(2, 300, 64), (1, 128, 512),
+                                   (3, 37, 100), (1, 1024, 256)]):
+        args = rglru_inputs(torch, B, T, D, 300 + i, dev)
+        h, hT = rglru_cuda(*args)
+        hr, hTr = ref.rglru_ref(*args)
+        close("rglru", h, hr, 1e-5, 1e-5)
+        close("rglru", hT, hTr, 1e-5, 1e-5)
 
 
 def phase_scheduler(torch, dev):
@@ -404,7 +580,7 @@ def phase_main_path(torch, dev, prof_ok):
     launches = dict(common.LAUNCHES)
     shapes = dict(common.LAST_SHAPES)
     log(f"main path launches: {launches}")
-    for name in TPU_KERNELS:
+    for name in FL_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the main path")
     if prof_ok:
@@ -424,64 +600,237 @@ def profile_round(torch, sched_name, tr, solve) -> tuple:
     over the host clock, the profiler's own cost included, so a lower
     bound) and the kernels that took longest.  Returns the round's
     sigma errors."""
+    rec = profiled(torch, f"{sched_name} profiled round",
+                   lambda: tr.run_round(4))
+    return check_round(torch, tr, solve, f"{sched_name} profiled round", rec)
+
+
+def profiled(torch, tag, fn, top=6):
+    """Run ``fn`` once under ``torch.profiler`` and log the device's busy
+    share of its wall time (summed kernel and copy time over the host
+    clock, the profiler's own cost included, so a lower bound) and the
+    kernels that took longest.  Returns what ``fn`` returns."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rec = tr.run_round(4)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    err = check_round(torch, tr, solve, f"{sched_name} profiled round", rec)
     evs = sorted((e for e in prof.key_averages()
                   if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in evs) / 1e6
-    log(f"{sched_name} profiled round: wall {wall * 1e3:.2f} ms, device "
-        f"busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}%), "
-        f"{sum(e.count for e in evs)} device ops; longest: " + "; ".join(
+    log(f"{tag}: wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.3f} ms"
+        f" ({100 * busy / wall:.1f}%), {sum(e.count for e in evs)} device "
+        f"ops; longest: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
-            f"x{e.count}" for e in evs[:6]))
-    return err
+            f"x{e.count}" for e in evs[:top]))
+    return out
+
+
+def lm_consistency(torch, model, params, prompts, P, C):
+    """Prefill of P tokens plus C teacher-forced ``serve_step``s (the
+    plain decode route) against one prefill of P+C tokens (the kernel
+    route) at those positions.  Returns (max abs error over max(1,
+    max |logit|), relative L2 error, warm prefill ms, max(1, max
+    |logit|))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _, cache = model.forward(params, {"tokens": prompts[:, :P]},
+                                     collect_cache=True, cache_len=P + C + 8)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    del logits
+    dec = []
+    for i in range(C):
+        step, cache = model.serve_step(params, cache,
+                                       {"tokens": prompts[:, P + i:P + i + 1]})
+        dec.append(step[:, 0])
+    dec = torch.stack(dec, dim=1)
+    full, _, _ = model.forward(params, {"tokens": prompts[:, :P + C]})
+    require(bool(torch.isfinite(full).all()), "prefill logits not finite")
+    want = full[:, P:P + C].clone()
+    del full, cache
+    scale = max(1.0, float(want.abs().max()))
+    err = float((dec - want).abs().max()) / scale
+    rel = float((dec - want).norm() / want.norm())
+    return err, rel, prefill_ms, scale
+
+
+def phase_lm(torch, dev, prof_ok):
+    """Serve recurrentgemma-2b, then rwkv6-3b, through ``generate`` at
+    full width and depth (bf16), each held to the launch counts and the
+    prefill/decode consistency bounds; first the same consistency check
+    on each reduced config in f32.  Returns the serving runs' launches and
+    kernel shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import generate
+    launches, shapes = {}, {}
+    for arch, want_launches in LM_PREFILL_LAUNCHES.items():
+        torch.cuda.reset_peak_memory_stats()
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = model.init(gen)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 108), generator=gen,
+                                device=dev)
+        err, rel, _, _ = lm_consistency(torch, model, params, prompts, 100,
+                                        8)
+        log(f"{cfg.name} f32 prefill(100)+8 steps vs prefill(108): max err"
+            f" {err:.3g} x scale, rel L2 {rel:.3g}")
+        require(err <= F32_CONSISTENCY,
+                f"{cfg.name}: decode disagrees with prefill")
+
+        cfg = get_config(arch)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = model.init(gen)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(x.numel() for x in _leaves(params))
+        prompts = torch.randint(0, cfg.vocab_size,
+                                (LM_BATCH, LM_PROMPT + LM_CHECK),
+                                generator=gen, device=dev)
+        common.reset_launches()
+        toks, st = generate(model, params, prompts[:, :LM_PROMPT], LM_GEN,
+                            temperature=0.8, generator=gen)
+        got = dict(common.LAUNCHES)
+        log(f"{arch}: {n_params / 1e9:.3f} B params ({cfg.param_dtype}, "
+            f"{cfg.num_layers} layers, d_model {cfg.d_model}) drawn on the "
+            f"card in {t_init:.2f} s; first prefill {LM_BATCH}x{LM_PROMPT} "
+            f"{st['prefill_ms']:.2f} ms, decode {LM_GEN} tokens "
+            f"{st['decode_tokens_per_s']:.2f} tok/s ({st['decode_s']:.3f} s);"
+            f" launches prefill {st['launches_prefill']} decode "
+            f"{st['launches_decode']}; seq 0: {toks[0].tolist()}")
+        require(got == want_launches and st["launches_prefill"] == got
+                and st["launches_decode"] == {},
+                f"{arch}: launches {got}, decode {st['launches_decode']}, "
+                f"want {want_launches} in prefill and none in decode")
+        require(tuple(toks.shape) == (LM_BATCH, LM_GEN)
+                and 0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+                f"{arch}: sampled tokens out of range")
+        launches.update(got)
+        shapes.update(common.LAST_SHAPES)
+        err, rel, warm_ms, scale = lm_consistency(
+            torch, model, params, prompts, LM_PROMPT, LM_CHECK)
+        log(f"{arch}: warm prefill {LM_BATCH}x{LM_PROMPT} {warm_ms:.2f} ms; "
+            f"bf16 prefill({LM_PROMPT})+{LM_CHECK} steps vs prefill("
+            f"{LM_PROMPT + LM_CHECK}): max err {err:.4g} x scale, rel L2 "
+            f"{rel:.4g} (bounds {BF16_CONSISTENCY}, max |logit| {scale:.4g});"
+            f" peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require(err <= BF16_CONSISTENCY[0] and rel <= BF16_CONSISTENCY[1],
+                f"{arch}: decode disagrees with prefill")
+        if prof_ok:
+            profile_serving(torch, model, params, prompts[:, :LM_PROMPT], arch)
+        del params, model, prompts
+        torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def profile_serving(torch, model, params, prompt, arch):
+    """One warm prefill and one warm decode step under the profiler."""
+    def prefill():
+        logits, _, cache = model.forward(params, {"tokens": prompt},
+                                         collect_cache=True,
+                                         cache_len=prompt.shape[1] + 8)
+        return logits[:, -1].argmax(-1)[:, None], cache
+
+    tok, cache = profiled(torch, f"{arch} profiled prefill", prefill, top=8)
+    model.serve_step(params, cache, {"tokens": tok})     # warm-up
+    profiled(torch, f"{arch} profiled decode step",
+             lambda: model.serve_step(params, cache, {"tokens": tok}))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def timing_case(torch, dev, name, shp):
+    """(kernel call, plain call, library call or None, tolerance, bytes
+    per element) for one kernel at shapes ``shp``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    from repro_torch.kernels.wemd_swap import wemd_add_triton, wemd_swap_triton
+    if name == "attention":        # at the model's dtype, bf16
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 92,
+                              dev)
+        kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
+        mask = window_mask(torch, S, T, causal, window, dev)
+        return (lambda: flash_attention_cuda(q, k, v, causal=bool(causal),
+                                             window=window),
+                lambda: ref.attention_ref(q, k, v, causal=bool(causal),
+                                          window=window),
+                lambda: F.scaled_dot_product_attention(q, kx, vx,
+                                                       attn_mask=mask),
+                (3e-2, 3e-2), 2)
+    if name == "wkv":
+        (B, T, H, hd), = shp
+        args = wkv_inputs(torch, B, T, H, hd, 93, dev)
+        return (lambda: wkv_cuda(*args)[0], lambda: ref.wkv_ref(*args)[0],
+                None, (2e-3, 1e-3), 4)
+    if name == "rglru":
+        (B, T, D), = shp
+        args = rglru_inputs(torch, B, T, D, 94, dev)
+        return (lambda: rglru_cuda(*args)[0], lambda: ref.rglru_ref(*args)[0],
+                None, (1e-5, 1e-5), 4)
+    if name == "persample_gradnorm":
+        (V, B, d), (_, _, C) = shp
+        args = psg_inputs(torch, V, B, d, C, 90, dev)
+        return (lambda: persample_gradnorm_cuda_batched(*args)[0],
+                lambda: ref.persample_gradnorm_ref(*args)[0], None,
+                (SIGMA_ATOL, SIGMA_RTOL), 4)
+    (B, V, C), = shp
+    args = wemd_inputs(torch, B, V, C, max(1, min(5, V)), 91, dev)
+    if name == "wemd_add":
+        kern, plain = wemd_add_triton, ref.wemd_add_ref
+        x, y = cdist_add(torch, *args)
+    else:
+        kern, plain = wemd_swap_triton, ref.wemd_swap_ref
+        x, y = cdist_swap(torch, *args)
+    return (lambda: kern(*args), lambda: plain(*args),
+            lambda: torch.cdist(x, y, p=1), (1e-5, 1e-5), 4)
 
 
 def phase_timing(torch, dev, launches, shapes, prof_ok):
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.persample_gradnorm import (
-        persample_gradnorm_cuda_batched)
-    from repro_torch.kernels.wemd_swap import wemd_add_triton, wemd_swap_triton
     rows = []
     for name in TPU_KERNELS:
         shp = shapes[name]
-        if name == "persample_gradnorm":
-            (V, B, d), (_, _, C) = shp
-            args = psg_inputs(torch, V, B, d, C, 90, dev)
-            kern = lambda: persample_gradnorm_cuda_batched(*args)  # noqa: E731
-            plain = lambda: ref.persample_gradnorm_ref(*args)  # noqa: E731
-            got, want = kern()[0], plain()[0]
-            library = None
-        else:
-            (B, V, C), = shp
-            args = wemd_inputs(torch, B, V, C, max(1, min(5, V)), 91, dev)
-            if name == "wemd_add":
-                kern = lambda: wemd_add_triton(*args)  # noqa: E731
-                plain = lambda: ref.wemd_add_ref(*args)  # noqa: E731
-                x, y = cdist_add(torch, *args)
-            else:
-                kern = lambda: wemd_swap_triton(*args)  # noqa: E731
-                plain = lambda: ref.wemd_swap_ref(*args)  # noqa: E731
-                x, y = cdist_swap(torch, *args)
-            library = lambda: torch.cdist(x, y, p=1)  # noqa: E731
-            got, want = kern(), plain()
-            lib_out = library().reshape(want.shape)
-            require(bool(torch.allclose(lib_out, want, atol=1e-5,
-                                        rtol=1e-5)),
-                    f"{name}: the cdist yardstick computes another function")
+        kern, plain, library, (atol, rtol), itemsize = timing_case(
+            torch, dev, name, shp)
+        got, want = kern().float(), plain().float()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        require(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
+                f"{name}: max abs err {err:.3g} over tolerance at {shp}")
+        if library is not None:
+            lib_out = library().float().reshape(want.shape)
+            require(bool(torch.allclose(lib_out, want, atol=atol,
+                                        rtol=rtol)),
+                    f"{name}: the library yardstick computes another "
+                    f"function")
         ms = time_ms(torch, kern)
+        clock_power = smi("clocks.sm,power.draw")
         plain_ms = time_ms(torch, plain)
         lib_ms = time_ms(torch, library) if library else None
-        b_ms, b_by = bound(name, shp)
+        b_ms, b_by = bound(name, shp, itemsize)
         route, src = SOURCES[name]
         rows.append({"name": name, "route": route, "source": src,
                      "replaces": TPU_KERNELS[name],
@@ -491,11 +840,14 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
                      "device_ms": device_ms(torch, kern) if prof_ok else None,
                      "plain_device_ms": (device_ms(torch, plain)
                                          if prof_ok else None),
+                     "sm_clock_power_after": clock_power,
                      "shape": [list(s) for s in shp]})
     log("kernels: " + "; ".join(
         f"{r['name']} median {r['ms']:.4f} ms per call, device "
         f"{r['device_ms']} ms, at {r['shape']} (plain {r['plain_ms']:.4f}"
-        f" ms, bound {r['bound_ms']:.6f} ms)" for r in rows))
+        f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f} ms, "
+        f"max abs err {r['max_abs_err']:.3g}; SM clock, power just after: "
+        f"{r['sm_clock_power_after']})" for r in rows))
     return rows
 
 
@@ -521,6 +873,11 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, shapes = phase_main_path(torch, dev, prof_ok)
     log(f"[main path] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lm_launches, lm_shapes = phase_lm(torch, dev, prof_ok)
+    launches.update(lm_launches)
+    shapes.update(lm_shapes)
+    log(f"[LM serving] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     rows = phase_timing(torch, dev, launches, shapes, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "

@@ -1,5 +1,10 @@
 """Weights carried across between ``repro`` (JAX) and ``repro_torch``.
 
+The LM zoo keeps the JAX package's layouts (``wq`` [d, H, hd], ``wo``
+[H, hd, d], ``conv_kernel`` [W, lru], periods stacked on a leading axis
+under ``blocks``, remainder layers as ``rem{i}``), so its conversion is a
+dtype-preserving move of every leaf of the nested dict.
+
 The paper CNN's conv kernels are HWIO in JAX and OIHW here.  ``fc1``'s
 rows follow the flatten order before it: (h, w, c) in the JAX model
 (NHWC), (c, h, w) here (NCHW), so they are permuted.  ``fc2``, ``b1``
@@ -55,3 +60,37 @@ def params_to_jax(params: Dict[str, torch.Tensor],
                 .reshape(h * w * c, -1)
         out[k] = np.ascontiguousarray(v)
     return out
+
+
+def _leaf_to_torch(a, dev) -> torch.Tensor:
+    a = np.array(a)                       # a writable copy
+    if a.dtype.name == "bfloat16":        # ml_dtypes' bf16, by its bits
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:         # exact in f32
+        t = t.to(torch.float32)
+    return np.ascontiguousarray(t.numpy())
+
+
+def lm_params_from_jax(np_params, device=None):
+    """``repro.models.transformer.init``'s params (a nested dict of numpy
+    arrays, bf16 as ml_dtypes' bfloat16) -> the port's tensors, same
+    layouts and dtypes."""
+    dev = resolve_device(device)
+    if isinstance(np_params, dict):
+        return {k: lm_params_from_jax(v, dev) for k, v in np_params.items()}
+    return _leaf_to_torch(np_params, dev)
+
+
+def lm_params_to_jax(params):
+    """Inverse of ``lm_params_from_jax``: nested numpy arrays in the JAX
+    layouts (bf16 leaves come back as f32, which holds them exactly;
+    ``jnp.asarray(a, jnp.bfloat16)`` restores them bit for bit)."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_jax(v) for k, v in params.items()}
+    return _leaf_to_numpy(params)

@@ -5,6 +5,12 @@
   persample_gradnorm.py  CUDA C++ (csrc/): Eq. 10 sigma-hat for a
                          softmax-CE head (replaces
                          repro/kernels/persample_gradnorm.py)
+  flash_attention.py     CUDA C++: causal / sliding-window attention
+                         (replaces repro/kernels/flash_attention.py)
+  rwkv_scan.py           CUDA C++: RWKV6 WKV recurrence (replaces
+                         repro/kernels/rwkv_scan.py)
+  rglru_scan.py          CUDA C++: RG-LRU diagonal recurrence (replaces
+                         repro/kernels/rglru_scan.py)
 
 ops.py dispatches on the tensor's device; ref.py holds the plain
 versions; common.py the launch counts and the nvcc build.

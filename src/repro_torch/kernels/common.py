@@ -4,8 +4,8 @@ Every kernel wrapper calls ``count_launch`` right after its kernel was
 launched (and nowhere else), so a run can show which kernels the main
 path went through: set the counts to zero with ``reset_launches``, run,
 read ``LAUNCHES``.  ``LAST_SHAPES`` keeps the input shapes of each
-kernel's latest launch, so a measurement can replay the main path's
-shapes.
+kernel's latest launch (for ``attention`` also its ``(causal, window)``),
+so a measurement can replay the main path's shapes.
 
 CUDA C++ kernels are compiled on first use, from the sources under
 ``csrc/``, by ``nvcc`` into a shared library with a plain C interface

@@ -4,7 +4,8 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 version in ``ref.py``; any other device raises.  There is no fallback:
 a kernel that fails to build or launch raises.  Inputs are cast to f32
 here, exactly as the Pallas wrappers of ``repro.kernels`` cast them, so
-both routes compute the same f32 function.
+both routes compute the same f32 function; attention alone takes bf16
+as it comes and upcasts inside, as the Pallas kernel does.
 """
 from __future__ import annotations
 
@@ -41,6 +42,37 @@ def wemd_add(p_sum, p_dev, global_dist, class_weights, sizes):
         from repro_torch.kernels.wemd_swap import wemd_add_triton
         return wemd_add_triton(*args)
     return ref.wemd_add_ref(*args)
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B,H,S,hd], k/v [B,KV,T,hd] (KV divides H; strided views
+    allowed) -> [B,H,S,hd] in q's dtype."""
+    if _route(q) == "cuda":
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def wkv(r, k, v, w, u, state):
+    """RWKV6 WKV over r, k, v, w [B,T,H,hd] from state [B,H,hd,hd] ->
+    (y [B,T,H,hd] in r's dtype, final state f32)."""
+    args = _f32(r, k, v, w, u, state)
+    if _route(r) == "cuda":
+        from repro_torch.kernels.rwkv_scan import wkv_cuda
+        y, s = wkv_cuda(*args)
+    else:
+        y, s = ref.wkv_ref(*args)
+    return y.to(r.dtype), s
+
+
+def rglru(a, b, h0):
+    """h_t = a_t h_{t-1} + b_t: a, b [B,T,D], h0 [B,D] -> (h [B,T,D],
+    h_T [B,D]), f32."""
+    args = _f32(a, b, h0)
+    if _route(a) == "cuda":
+        from repro_torch.kernels.rglru_scan import rglru_cuda
+        return rglru_cuda(*args)
+    return ref.rglru_ref(*args)
 
 
 def persample_gradnorm(features, logits, labels):

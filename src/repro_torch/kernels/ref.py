@@ -1,14 +1,75 @@
 """Plain PyTorch versions of the port's kernels (the allclose targets).
 
 They mirror ``repro/kernels/ref.py`` and are deliberately naive: the
-swap matrix and the per-sample gradients are materialised in full.  The
+swap matrix, the per-sample gradients and the attention scores are
+materialised in full, and the recurrences walk time step by step.  The
 CPU path of ``repro_torch.kernels.ops`` runs them; nothing on the CUDA
 path does.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+
+def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                  scale: float | None = None):
+    """q [B,H,S,hd], k/v [B,KV,T,hd] with KV dividing H (query head h
+    reads key head h // (H/KV)) -> [B,H,S,hd] in q's dtype.  Dense masked
+    softmax in f32; queries are right-aligned when T > S."""
+    B, H, S, hd = q.shape
+    T = k.shape[2]
+    G = H // k.shape[1]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=1)
+        v = v.repeat_interleave(G, dim=1)
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    qi = torch.arange(S, device=q.device)[:, None]
+    ki = torch.arange(T, device=q.device)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= ki <= qi + (T - S)
+    if window > 0:
+        ok &= ki > qi + (T - S) - window
+    scores = torch.where(ok, scores, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def wkv_ref(r, k, v, w, u, state=None):
+    """RWKV6 naive recurrence. r,k,v,w [B,T,H,hd]; u [H,hd];
+    state [B,H,hd,hd] f32 (zeros when None).  Returns
+    (y [B,T,H,hd] in r's dtype, final state f32)."""
+    B, T, H, hd = r.shape
+    S = (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=r.device)
+         if state is None else state.to(torch.float32))
+    rf, kf, vf, wf = (a.to(torch.float32) for a in (r, k, v, w))
+    uf = u.to(torch.float32)
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], wf[:, t]
+        ys.append(torch.einsum("bhd,bhdv->bhv", rt, S)
+                  + torch.einsum("bhd,hd,bhd->bh", rt, uf, kt)[..., None]
+                  * vt)
+        S = wt[..., None] * S + torch.einsum("bhd,bhv->bhdv", kt, vt)
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(rf)
+    return y.to(r.dtype), S
+
+
+def rglru_ref(a, b, h0):
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t, step by step.
+    a, b [B,T,D] f32; h0 [B,D]. Returns (h [B,T,D], h_T)."""
+    h = h0
+    hs = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return (torch.stack(hs, dim=1) if hs else torch.zeros_like(a)), h
 
 
 def wemd_swap_ref(p_sum, p_dev, global_dist, class_weights, sizes):

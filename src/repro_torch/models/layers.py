@@ -1,7 +1,209 @@
-"""Shared neural-net primitives (only what the paper CNN needs so far)."""
+"""Shared neural-net primitives of the port's models (PyTorch, functional).
+
+Parameters are plain dicts of tensors in the JAX package's layouts
+(``wq`` [d, H, hd], ``wo`` [H, hd, d]), so weights carry across with a
+dtype and device move (``repro_torch.convert``).  Attention prefill goes
+through ``kernels.ops.attention`` (the hand-written kernel on a CUDA
+tensor, its plain version on the CPU); decode attends over the ring
+buffer in plain torch, as the JAX package's ``_attend`` does.
+"""
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# init helpers (drawn from an explicit generator, on its device)
+
+
+def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
+               dtype=torch.float32):
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(scale)
+
+
+def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
+    return dense_init(gen, shape, scale=0.02, dtype=dtype)
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+# ---------------------------------------------------------------------------
+# norms
+
+
+def rms_norm_init(dim, dtype, device):
+    return {"scale": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def rms_norm(params, x, eps: float = 1e-6):
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + params["scale"].to(torch.float32))).to(dtype)
+
+
+def group_norm(x, num_groups, eps: float = 1e-5, scale=None, bias=None):
+    """GroupNorm over the last dim (used by RWKV6 wkv output)."""
+    dtype = x.dtype
+    d = x.shape[-1]
+    g = x.reshape(x.shape[:-1] + (num_groups, d // num_groups)).to(
+        torch.float32)
+    mean = g.mean(-1, keepdim=True)
+    var = g.var(-1, keepdim=True, correction=0)
+    g = (g - mean) * torch.rsqrt(var + eps)
+    g = g.reshape(x.shape)
+    if scale is not None:
+        g = g * scale.to(torch.float32)
+    if bias is not None:
+        g = g + bias.to(torch.float32)
+    return g.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# positions
+
+
+def rope(x, positions, theta: float):
+    """x [..., S, H, hd]; positions [..., S] (broadcastable).  Half-split
+    rotation; sin/cos are cast to x's dtype before it, as in the JAX
+    package."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=x.device) / half)
+    angles = positions[..., :, None, None].to(torch.float32) * freq
+    sin = torch.sin(angles).to(x.dtype)
+    cos = torch.cos(angles).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+
+
+def attention_params_init(gen, cfg: ModelConfig, dtype):
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (d, H, hd), dtype=dtype),
+        "wk": dense_init(gen, (d, KV, hd), dtype=dtype),
+        "wv": dense_init(gen, (d, KV, hd), dtype=dtype),
+        "wo": dense_init(gen, (H, hd, d), scale=1.0 / math.sqrt(H * hd),
+                         dtype=dtype),
+    }
+
+
+def _expand_kv(k, H):
+    """[B,T,KV,hd] -> [B,T,H,hd]: query head h reads key head h // (H/KV)."""
+    G = H // k.shape[2]
+    return k if G == 1 else k.repeat_interleave(G, dim=2)
+
+
+def _mask_bias(q_pos, k_pos, window: int, causal: bool):
+    """Additive f32 bias [B, S, T] from positions q_pos [B,S], k_pos [B,T]."""
+    qp, kp = q_pos[:, :, None], k_pos[:, None, :]
+    ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
+                    dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok &= kp <= qp
+    if window > 0:
+        ok &= kp > (qp - window)
+    ok &= kp >= 0   # slots with pos -1 are invalid (ring buffer)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(ok, zero, -1e30)
+
+
+def _attend(q, k, v, bias):
+    """q [B,S,H,hd], k/v [B,T,H,hd], bias [B,S,T]: dense softmax in f32,
+    probs cast to v's dtype before the product with v (as ``_attend``)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bshd,bthd->bhst", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    scores = scores + bias[:, None, :, :]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+
+
+def _project(x, w):
+    """x [B,S,d] @ w [d,H,hd] -> contiguous [B,S,H,hd]."""
+    B, S, d = x.shape
+    return (x.reshape(B * S, d) @ w.reshape(d, -1)).reshape(
+        B, S, w.shape[1], w.shape[2])
+
+
+def multihead_attention(params, cfg: ModelConfig, x, *, q_pos=None,
+                        causal=True, window=0, rope_theta=None, cache=None):
+    """GQA self attention.  x [B,S,d]; q_pos [B or 1, S] int.
+
+    Prefill (``cache`` None): queries and keys sit at positions 0..S-1,
+    and ``ops.attention`` applies the causal and window masks.  Decode
+    (``cache`` given, S == 1): the new key and value are written into the
+    ring buffer {'k','v','slot_pos','next_slot'} at ``next_slot`` and
+    attention runs over the buffer, masked by each slot's position.
+    Returns (out [B,S,d], new_cache or None, (k, v) after rope)."""
+    B, S, d = x.shape
+    H = cfg.num_heads
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    theta = rope_theta if rope_theta is not None else cfg.rope_theta
+    if cfg.pos_embedding == "rope" and q_pos is not None:
+        q = rope(q, q_pos, theta)
+        k = rope(k, q_pos, theta)
+
+    new_cache = None
+    if cache is not None:
+        slot = cache["next_slot"].reshape(1).long()
+        k = cache["k"].index_copy(1, slot, k)
+        v = cache["v"].index_copy(1, slot, v)
+        slot_pos = cache["slot_pos"].index_copy(
+            0, slot, q_pos.reshape(-1)[:1].to(torch.int32))
+        new_cache = {"k": k, "v": v, "slot_pos": slot_pos,
+                     "next_slot": (cache["next_slot"] + 1) % k.shape[1]}
+        bias = _mask_bias(q_pos.expand(B, S).to(torch.int32),
+                          slot_pos[None, :].expand(B, -1), window, causal)
+        out = _attend(q, _expand_kv(k, H), _expand_kv(v, H), bias)
+    else:
+        out = ops.attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            window=window).transpose(1, 2)
+    wo = params["wo"]
+    out = out.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return out.reshape(B, S, -1), new_cache, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+
+
+def swiglu_init(gen, d, dff, dtype):
+    return {
+        "w_gate": dense_init(gen, (d, dff), dtype=dtype),
+        "w_up": dense_init(gen, (d, dff), dtype=dtype),
+        "w_down": dense_init(gen, (dff, d), dtype=dtype),
+    }
+
+
+def swiglu(params, x, act=F.silu):
+    h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# losses
 
 
 def softmax_cross_entropy(logits, targets, mask=None, label_smoothing=0.0):

@@ -1,21 +1,29 @@
-"""Model registry: a uniform functional handle (the paper CNN so far)."""
+"""Model registry: a uniform functional handle over the paper CNN and
+the LM architectures ported so far."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_cnn import CNNConfig
 from repro_torch.models import cnn as C
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import softmax_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: Any
-    init: Callable             # (torch.Generator) -> params on the CPU
-    loss_fn: Callable          # (params, batch, dropout=None) -> (loss, metrics)
-    forward: Callable          # (params, batch, dropout=None) -> logits
-    dropout_shapes: Callable   # (batch_size) -> keep-mask shapes
+    init: Callable             # (torch.Generator) -> params
+    forward: Callable
+    # the paper CNN's (the LM's training is not ported yet)
+    loss_fn: Optional[Callable] = None     # (params, batch, dropout=None)
+    dropout_shapes: Optional[Callable] = None  # (batch_size) -> mask shapes
+    # the LM's decode
+    init_cache: Optional[Callable] = None  # (batch, cache_len, device)
+    serve_step: Optional[Callable] = None  # (params, cache, batch)
 
     @property
     def name(self):
@@ -31,7 +39,7 @@ def _cnn_model(cfg: CNNConfig) -> Model:
 
     return Model(
         cfg=cfg,
-        init=lambda gen: C.init_paper_cnn(gen, cfg),
+        init=lambda gen: C.init_paper_cnn(gen, cfg),      # on the CPU
         loss_fn=loss,
         forward=lambda params, batch, dropout=None: C.paper_cnn_forward(
             params, cfg, batch["images"], dropout),
@@ -39,10 +47,28 @@ def _cnn_model(cfg: CNNConfig) -> Model:
     )
 
 
-def build_model(cfg: CNNConfig) -> Model:
-    """CNNConfig -> Model (``kind="paper_cnn"``; ResNet18-GN is not
-    ported yet)."""
-    if not isinstance(cfg, CNNConfig) or cfg.kind != "paper_cnn":
-        raise NotImplementedError(f"only the paper CNN is ported, got "
-                                  f"{cfg!r}")
-    return _cnn_model(cfg)
+def _lm_model(cfg: ModelConfig) -> Model:
+    T.check_ported(cfg)
+    return Model(
+        cfg=cfg,
+        init=lambda gen: T.init(gen, cfg),       # on the generator's device
+        forward=lambda params, batch, **kw: T.forward(params, cfg, batch,
+                                                      **kw),
+        init_cache=lambda batch, cache_len, device: T.init_cache(
+            cfg, batch, cache_len, device),
+        serve_step=lambda params, cache, batch: T.serve_step(
+            params, cfg, cache, batch),
+    )
+
+
+def build_model(arch_or_cfg) -> Model:
+    """A CNNConfig (``kind="paper_cnn"``; ResNet18-GN is not ported yet),
+    a ModelConfig, or the name of a ported LM architecture -> Model."""
+    if isinstance(arch_or_cfg, CNNConfig):
+        if arch_or_cfg.kind != "paper_cnn":
+            raise NotImplementedError(f"only the paper CNN is ported, got "
+                                      f"{arch_or_cfg!r}")
+        return _cnn_model(arch_or_cfg)
+    if isinstance(arch_or_cfg, ModelConfig):
+        return _lm_model(arch_or_cfg)
+    return _lm_model(get_config(arch_or_cfg))

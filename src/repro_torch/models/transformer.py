@@ -1,0 +1,359 @@
+"""Decoder of the LM model zoo: RG-LRU hybrids and RWKV6 so far.
+
+As in the JAX package, the parameters of the ``num_full_periods`` pattern
+periods are stacked on a leading [nper] axis (``params["blocks"]``) and
+the remainder layers are ``rem{i}``; here the periods run in a Python
+loop over views of the stacked leaves.  Prefill runs the hand-written
+kernels through ``kernels.ops`` (local attention, the RG-LRU scan, the
+WKV recurrence); decode is plain torch.  Cross attention, MoE FFNs and
+the audio / VLM front ends are not ported yet and raise.
+
+Public API (functional):
+    init(gen, cfg)                                  -> params
+    forward(params, cfg, batch, collect_cache, cache_len)
+                                                    -> (logits, aux, cache)
+    init_cache(cfg, batch_size, cache_len, device)  -> cache
+    serve_step(params, cfg, cache, batch)           -> (logits, cache)
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
+                                      RECURRENT, RWKV, ModelConfig)
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import rwkv6 as W
+
+
+def _dtype(cfg: ModelConfig):
+    return getattr(torch, cfg.dtype)
+
+
+def _pdtype(cfg: ModelConfig):
+    return getattr(torch, cfg.param_dtype)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for the parts of the JAX decoder the port does not have yet."""
+    missing = []
+    if CROSS_ATTN in cfg.block_pattern:
+        missing.append("cross attention")
+    if cfg.num_experts:
+        missing.append("MoE FFNs")
+    if cfg.family in ("audio", "vlm"):
+        missing.append(f"the {cfg.family} front end")
+    if cfg.qkv_bias or cfg.qk_norm or cfg.pos_embedding == "sinusoidal":
+        missing.append("QKV bias, QK norm and sinusoidal positions")
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
+            f"yet (see ROADMAP.md, Queue 1)")
+
+
+# ---------------------------------------------------------------------------
+# nested-dict helpers (the parameter and cache trees)
+
+
+def _map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _stack(trees):
+    return _map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _index(tree, i):
+    return _map(lambda x: x[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# init
+
+
+def init_layer(gen, cfg: ModelConfig, kind: str):
+    dt = _pdtype(cfg)
+    d = cfg.d_model
+    dev = gen.device
+    if kind == RWKV:
+        return {
+            "ln1": W.layer_norm_init(d, dt, dev),
+            "tm": W.time_mix_init(gen, cfg, dt),
+            "ln2": W.layer_norm_init(d, dt, dev),
+            "cm": W.channel_mix_init(gen, cfg, dt),
+        }
+    p = {"norm1": L.rms_norm_init(d, dt, dev),
+         "norm2": L.rms_norm_init(d, dt, dev)}
+    if kind == RECURRENT:
+        p["rec"] = R.recurrent_block_init(gen, cfg, dt)
+    else:
+        p["attn"] = L.attention_params_init(gen, cfg, dt)
+    p["ffn"] = L.swiglu_init(gen, d, cfg.d_ff, dt)
+    return p
+
+
+def init_period(gen, cfg: ModelConfig):
+    return {f"layer{i}": init_layer(gen, cfg, kind)
+            for i, kind in enumerate(cfg.block_pattern)}
+
+
+def init(gen: torch.Generator, cfg: ModelConfig):
+    """Random weights drawn from ``gen`` on its device, in
+    ``cfg.param_dtype`` (the JAX package's structure and shapes; its
+    threefry values cannot be matched, so parity runs convert the JAX
+    package's weights instead)."""
+    check_ported(cfg)
+    dt = _pdtype(cfg)
+    dev = gen.device
+    params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                    dtype=dt)}
+    if cfg.num_full_periods:
+        params["blocks"] = _stack([init_period(gen, cfg)
+                                   for _ in range(cfg.num_full_periods)])
+    for i in range(cfg.num_remainder_layers):
+        params[f"rem{i}"] = init_layer(gen, cfg, cfg.block_pattern[i])
+    params["final_norm"] = (W.layer_norm_init(cfg.d_model, dt, dev)
+                            if RWKV in cfg.block_pattern
+                            else L.rms_norm_init(cfg.d_model, dt, dev))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype=dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# per-layer state (decode cache / recurrent state)
+
+
+def init_layer_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
+                     device):
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    dt = _dtype(cfg)
+    if kind == RECURRENT:
+        return R.init_recurrent_state(cfg, batch, device)
+    if kind == RWKV:
+        H, rhd = cfg.num_heads, cfg.rwkv_head_dim
+        return {"shift1": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                      device=device),
+                "shift2": torch.zeros((batch, cfg.d_model), dtype=dt,
+                                      device=device),
+                "wkv": torch.zeros((batch, H, rhd, rhd), dtype=torch.float32,
+                                   device=device)}
+    if kind == GLOBAL_ATTN:
+        n = cache_len
+    elif kind == LOCAL_ATTN:
+        n = min(cfg.window_size, cache_len)
+    else:
+        raise ValueError(kind)
+    return {"k": torch.zeros((batch, n, KV, hd), dtype=dt, device=device),
+            "v": torch.zeros((batch, n, KV, hd), dtype=dt, device=device),
+            "slot_pos": torch.full((n,), -1, dtype=torch.int32,
+                                   device=device),
+            "next_slot": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+    """Decode cache for the whole model (stacked over periods)."""
+    check_ported(cfg)
+    cache = {}
+    nper = cfg.num_full_periods
+    if nper:
+        cache["blocks"] = _stack([
+            {f"layer{i}": init_layer_state(cfg, kind, batch, cache_len,
+                                           device)
+             for i, kind in enumerate(cfg.block_pattern)}
+            for _ in range(nper)])
+    for i in range(cfg.num_remainder_layers):
+        cache[f"rem{i}"] = init_layer_state(cfg, cfg.block_pattern[i],
+                                            batch, cache_len, device)
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# layer application
+
+
+def apply_layer(p, cfg: ModelConfig, kind: str, x, *, q_pos=None,
+                state=None, decode=False, collect_cache=False,
+                cache_len: int = 0):
+    """Returns (x, aux_loss, new_state)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_state = state
+    B = x.shape[0]
+
+    if kind == RWKV:
+        h = W.layer_norm(p["ln1"], x)
+        if decode:
+            y, s1, wkv = W.time_mix_step(p["tm"], cfg, h, state["shift1"],
+                                         state["wkv"])
+        else:
+            s1_0 = (torch.zeros((B, cfg.d_model), dtype=x.dtype,
+                                device=x.device)
+                    if state is None else state["shift1"])
+            rhd = cfg.rwkv_head_dim
+            wkv_0 = (torch.zeros((B, cfg.num_heads, rhd, rhd),
+                                 dtype=torch.float32, device=x.device)
+                     if state is None else state["wkv"])
+            y, s1, wkv = W.time_mix(p["tm"], cfg, h, s1_0, wkv_0)
+        x = x + y
+        h = W.layer_norm(p["ln2"], x)
+        s2_0 = (torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
+                if state is None else state["shift2"])
+        y, s2 = W.channel_mix(p["cm"], h, s2_0)
+        x = x + y
+        if collect_cache or decode:
+            new_state = {"shift1": s1.to(_dtype(cfg)),
+                         "shift2": s2.to(_dtype(cfg)), "wkv": wkv}
+        return x, aux, new_state
+
+    if kind == RECURRENT:
+        h = L.rms_norm(p["norm1"], x)
+        s0 = R.init_recurrent_state(cfg, B, x.device) if state is None \
+            else state
+        y, s = R.recurrent_block(p["rec"], cfg, h, s0, decode=decode)
+        x = x + y
+        x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x), act=L.gelu)
+        return x, aux, (s if (collect_cache or decode) else state)
+
+    if kind not in (GLOBAL_ATTN, LOCAL_ATTN):
+        raise NotImplementedError(f"layer kind {kind!r} is not ported")
+    h = L.rms_norm(p["norm1"], x)
+    window = cfg.window_size if kind == LOCAL_ATTN else 0
+    theta = (cfg.rope_theta_local if kind == LOCAL_ATTN else cfg.rope_theta)
+    if decode:
+        y, new_state, _ = L.multihead_attention(
+            p["attn"], cfg, h, q_pos=q_pos, causal=True, window=window,
+            rope_theta=theta, cache=state)
+    else:
+        y, _, kv = L.multihead_attention(
+            p["attn"], cfg, h, q_pos=q_pos, causal=True, window=window,
+            rope_theta=theta)
+        if collect_cache:
+            new_state = _prefill_cache(cfg, kind, kv, q_pos, cache_len)
+    x = x + y
+    x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x))
+    return x, aux, new_state
+
+
+def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
+    """Pack prefill-computed KV into a decode cache buffer: when the
+    prompt fills the buffer, it keeps the last n keys and the next write
+    goes to slot 0 (the oldest)."""
+    k, v = kv
+    B, S = k.shape[0], k.shape[1]
+    n = min(cfg.window_size, cache_len) if kind == LOCAL_ATTN else cache_len
+    pos = (q_pos.expand(B, S)[0] if q_pos is not None
+           else torch.arange(S, device=k.device)).to(torch.int32)
+    if S >= n:
+        k, v, pos = k[:, -n:], v[:, -n:], pos[-n:]
+        next_slot = torch.zeros((), dtype=torch.int32, device=k.device)
+        slot_pos = pos
+    else:
+        padn = n - S
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, padn))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, padn))
+        slot_pos = torch.cat([pos, torch.full((padn,), -1, dtype=torch.int32,
+                                              device=k.device)])
+        next_slot = torch.tensor(S % n, dtype=torch.int32, device=k.device)
+    return {"k": k.contiguous(), "v": v.contiguous(),
+            "slot_pos": slot_pos.contiguous(), "next_slot": next_slot}
+
+
+# ---------------------------------------------------------------------------
+# trunk
+
+
+def _embed(params, cfg: ModelConfig, batch):
+    dt = _dtype(cfg)
+    x = params["embed"][batch["tokens"]].to(dt)
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
+        device=x.device, dtype=dt)
+
+
+def _head(params, cfg: ModelConfig, x):
+    xn = (W.layer_norm(params["final_norm"], x)
+          if RWKV in cfg.block_pattern
+          else L.rms_norm(params["final_norm"], x))
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = xn.to(torch.float32) @ head.to(torch.float32)
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = torch.tanh(logits / c) * c
+    return logits
+
+
+def forward(params, cfg: ModelConfig, batch, collect_cache: bool = False,
+            cache_len: int = 0):
+    """Full-sequence forward of batch['tokens'] [B,S].  Returns (logits
+    [B,S,V] f32, aux, cache-or-None); with ``collect_cache`` the cache
+    holds ``cache_len`` positions for the decode that follows."""
+    check_ported(cfg)
+    x = _embed(params, cfg, batch)
+    S = x.shape[1]
+    q_pos = torch.arange(S, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    cache = {}
+
+    def run(p, kind, x, aux):
+        x, a, st = apply_layer(p, cfg, kind, x, q_pos=q_pos,
+                               collect_cache=collect_cache,
+                               cache_len=cache_len)
+        return x, aux + a, st
+
+    states = []
+    for pi in range(cfg.num_full_periods):
+        pparams = _index(params["blocks"], pi)
+        st = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            x, aux, st[f"layer{i}"] = run(pparams[f"layer{i}"], kind, x, aux)
+        states.append(st)
+    if collect_cache and states:
+        cache["blocks"] = _stack(states)
+    for i in range(cfg.num_remainder_layers):
+        x, aux, st = run(params[f"rem{i}"], cfg.block_pattern[i], x, aux)
+        if collect_cache:
+            cache[f"rem{i}"] = st
+    logits = _head(params, cfg, x)
+    if collect_cache:
+        cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        return logits, aux, cache
+    return logits, aux, None
+
+
+def serve_step(params, cfg: ModelConfig, cache, batch):
+    """One decode step: batch['tokens'] [B,1].  Returns (logits [B,1,V],
+    new cache); the cache passed in is left as it was."""
+    x = _embed(params, cfg, batch)
+    B = x.shape[0]
+    pos = cache["pos"]
+    q_pos = pos.reshape(1, 1).expand(B, 1)
+
+    def run(p, kind, x, state):
+        x, _, st = apply_layer(p, cfg, kind, x, q_pos=q_pos, state=state,
+                               decode=True)
+        return x, st
+
+    new_cache = {}
+    states = []
+    for pi in range(cfg.num_full_periods):
+        pparams = _index(params["blocks"], pi)
+        pstate = _index(cache["blocks"], pi)
+        st = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            x, st[f"layer{i}"] = run(pparams[f"layer{i}"], kind, x,
+                                     pstate[f"layer{i}"])
+        states.append(st)
+    if states:
+        new_cache["blocks"] = _stack(states)
+    for i in range(cfg.num_remainder_layers):
+        x, new_cache[f"rem{i}"] = run(params[f"rem{i}"],
+                                      cfg.block_pattern[i], x,
+                                      cache[f"rem{i}"])
+    new_cache["pos"] = pos + 1
+    logits = _head(params, cfg, x)
+    return logits, new_cache

@@ -56,6 +56,7 @@ def test_entry_points_raise_without_gpu(no_gpu):
     from repro_torch.data import sort_and_partition, synthetic_image_dataset
     from repro_torch.fl import FederatedTrainer, FLConfig
     from repro_torch.models.registry import build_model
+    from repro_torch.serve import main as serve_main
 
     cfg = CNNConfig(name="m", kind="paper_cnn", num_classes=2, image_size=8,
                     dropout=False, width=0.25)
@@ -75,6 +76,10 @@ def test_entry_points_raise_without_gpu(no_gpu):
         convert.params_from_jax({"b1": np.zeros(120)}, cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--rounds", "1", "--devices", "4"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--arch", "rwkv6-3b", "--reduced", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_params_from_jax({"embed": np.zeros((4, 2))})
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

@@ -82,3 +82,105 @@ def test_persample_gradnorm_kernel_on_card(cuda, B, d, C):
     torch.cuda.synchronize()
     torch.testing.assert_close(sb[0], s)
     torch.testing.assert_close(gb[0], gi)
+
+
+ATTN_SHAPES = [(2, 3, 128, 128, 64), (1, 2, 256, 256, 64),
+               (2, 2, 100, 100, 32), (1, 2, 64, 192, 64),
+               (1, 1, 128, 128, 128), (1, 1, 257, 257, 64)]
+WKV_SHAPES = [(2, 48, 3, 32), (1, 16, 2, 64), (2, 100, 2, 16), (1, 64, 1, 64)]
+RGLRU_SHAPES = [(2, 300, 64), (1, 128, 512), (3, 37, 100), (1, 1024, 256)]
+
+
+def randn(rng, shape, scale=1.0):
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,T,hd", ATTN_SHAPES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
+def test_attention_kernel_on_card(cuda, B, H, S, T, hd, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    rng = np.random.default_rng(S + T + hd)
+    q, k, v = to_torch([randn(rng, (B, H, n, hd)) for n in (S, T, T)], cuda)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, tref.attention_ref(q, k, v, causal=causal, window=window),
+        atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_attention_kernel_bf16_shared_kv_and_strides(cuda):
+    """bf16 (atol 3e-2, as test_flash_attention_dtypes), one key head for
+    ten query heads at hd 256 and a window, read through the model's
+    [B, S, H, hd] strides."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    rng = np.random.default_rng(11)
+    q, k, v = to_torch([randn(rng, (1, 2, 128, 64)) for _ in range(3)], cuda)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    out = flash_attention_cuda(qb, kb, vb, causal=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(),
+                               tref.attention_ref(qb, kb, vb).float(),
+                               atol=3e-2, rtol=3e-2)
+    B, S, H, hd = 2, 300, 10, 256
+    q = torch.as_tensor(randn(rng, (B, S, H, hd)), device=cuda)
+    kv = torch.as_tensor(randn(rng, (2, B, S, 1, hd)), device=cuda)
+    args = (q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2))
+    out = flash_attention_cuda(*args, causal=True, window=64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out, tref.attention_ref(*args, causal=True, window=64),
+        atol=3e-5, rtol=1e-4)
+
+
+def wkv_inputs(rng, B, T, H, hd, device):
+    r = randn(rng, (B, T, H, hd))
+    k = randn(rng, (B, T, H, hd), scale=0.3)
+    v = randn(rng, (B, T, H, hd))
+    w = (1 / (1 + np.exp(-rng.normal(size=(B, T, H, hd)) * 2)) * 0.6
+         + 0.39).astype(np.float32)
+    u = randn(rng, (H, hd), scale=0.1)
+    s = randn(rng, (B, H, hd, hd), scale=0.5)
+    return to_torch([r, k, v, w, u, s], device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,H,hd", WKV_SHAPES)
+def test_wkv_kernel_on_card(cuda, B, T, H, hd):
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    args = wkv_inputs(np.random.default_rng(T + hd), B, T, H, hd, cuda)
+    y, s = wkv_cuda(*args)
+    torch.cuda.synchronize()
+    yr, sr = tref.wkv_ref(*args)
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=1e-3)
+    torch.testing.assert_close(s, sr, atol=2e-3, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_wkv_kernel_extreme_decay_on_card(cuda):
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    r, k, v, _, u, _ = wkv_inputs(np.random.default_rng(3), 1, 32, 1, 16,
+                                  cuda)
+    w = torch.full_like(r, 1e-4)
+    s0 = torch.zeros((1, 1, 16, 16), device=cuda)
+    y, _ = wkv_cuda(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y, tref.wkv_ref(r, k, v, w, u, s0)[0],
+                               atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,D", RGLRU_SHAPES)
+def test_rglru_kernel_on_card(cuda, B, T, D):
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    rng = np.random.default_rng(T + D)
+    a, b, h0 = to_torch([rng.uniform(0.8, 0.999, (B, T, D)).astype(
+        np.float32), randn(rng, (B, T, D)), randn(rng, (B, D))], cuda)
+    y, hT = rglru_cuda(a, b, h0)
+    torch.cuda.synchronize()
+    yr, hr = tref.rglru_ref(a, b, h0)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hT, hr, atol=1e-5, rtol=1e-5)
