@@ -12,8 +12,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5, sigma to 1e-3, gi_sq to atol
-     1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16 atol 3e-2; wkv atol
-     2e-3 with the w=1e-4 case; rglru 1e-5);
+     1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16 atol 1e-3 / rtol
+     8e-3, tighter than the sweep's 3e-2; wkv atol 2e-3 with the w=1e-4
+     case; rglru 1e-5);
   3. solves 50 seeded random P1 problems with the torch scheduler on the
      card and requires the numpy solvers' masks and iteration counts;
   4. drives the FL main path: ``FederatedTrainer`` on the full-width
@@ -36,14 +37,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      teacher-forced ``serve_step``s (the plain decode route) must agree
      with one prefill of P+8 tokens (the kernel route), in f32 on each
      reduced config (2e-3 * scale, the bound of the JAX package's
-     tests/test_models_smoke.py) and in bf16 on the full ones
-     (``BF16_CONSISTENCY``);
+     tests/test_models_smoke.py) and in bf16 on the full ones and on
+     their first layers (``BF16_CONSISTENCY``, ``LM_DEPTHS``);
   6. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes) beside its plain version, one
      library call where one computes the same function (``cdist`` for
      the WEMD scans, ``scaled_dot_product_attention`` under the window
      mask for attention), and the least time the card could take (its
-     bound), and holds it to its plain version there again: ``ms`` is
+     bound), and holds it to its plain version there again (attention
+     also in f32 at that shape, atol 3e-5 / rtol 1e-4): ``ms`` is
      the median per-call time of back-to-back calls by CUDA events (what
      a caller pays, launch included), ``device_ms`` the kernels' own
      device time from a ``torch.profiler`` trace.
@@ -93,14 +95,27 @@ SOURCES = {
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK = 4, 3072, 32, 8
 LM_PREFILL_LAUNCHES = {"recurrentgemma-2b": {"attention": 8, "rglru": 18},
                        "rwkv6-3b": {"wkv": 32}}
-# prefill (kernel route) vs decode (plain route) at bf16 over the full
-# depth: max abs error over max(1, max |logit|), and relative L2 error.
-# bf16 keeps 8 bits; the decode route rounds attention probabilities to
-# bf16 where the kernel keeps them in f32, and matmuls of other shapes
-# round otherwise.  A reduced-width, 26-layer bf16 recurrentgemma on the
-# CPU gave 0.037 and 0.027; the bounds are about three times that.
-BF16_CONSISTENCY = (0.1, 0.08)
+# prefill (kernel route) vs decode (plain route) at bf16: max abs error
+# over max(1, max |logit|), and relative L2 error.  bf16 keeps 8 bits;
+# the decode route rounds attention probabilities to bf16 where the
+# kernel keeps them in f32, and matmuls of other shapes round otherwise.
+# The readings at full depth are deterministic (three runs on one H100
+# gave the same digits): recurrentgemma-2b 0.006825 and 0.02242, rwkv6-3b
+# 0.06971 and 0.06116, which is the size of the JAX package's own bf16
+# error for rwkv6 (tests/test_torch_lm.py).  The bounds are about 1.5x
+# recurrentgemma's readings and 1.3-1.4x rwkv6's.
+BF16_CONSISTENCY = {"recurrentgemma-2b": (0.01, 0.035),
+                    "rwkv6-3b": (0.1, 0.08)}
+# depths (whole pattern periods) of the first layers whose bf16
+# prefill/decode gap is also read, to see where over the depth it grows
+LM_DEPTHS = {"recurrentgemma-2b": (3, 6, 12, 24),
+             "rwkv6-3b": (1, 2, 4, 8, 16)}
 F32_CONSISTENCY = 2e-3          # tests/test_models_smoke.py's bound
+# bf16 attention against its f32-accumulated plain version: both round
+# the same f32 value to bf16 once, so they differ by at most one bf16
+# step (< 2**-7 relative) plus f32 noise
+BF16_ATTN_TOL = (1e-3, 8e-3)
+F32_ATTN_TOL = (3e-5, 1e-4)
 
 
 def log(msg: str) -> None:
@@ -414,9 +429,10 @@ def lm_kernel_checks(torch, dev, close):
         want = ref.attention_ref(q, k, v, causal=causal, window=window)
         require(out.dtype == dt, "attention output dtype")
         if dt == f32:
-            close("attention", out, want, 3e-5, 1e-4)
+            close("attention", out, want, *F32_ATTN_TOL)
         else:
-            close("attention.bf16", out.float(), want.float(), 3e-2, 3e-2)
+            close("attention.bf16", out.float(), want.float(),
+                  *BF16_ATTN_TOL)
     for i, (B, T, H, hd) in enumerate([(2, 48, 3, 32), (1, 16, 2, 64),
                                        (2, 100, 2, 16), (1, 64, 1, 64)]):
         args = wkv_inputs(torch, B, T, H, hd, 200 + i, dev)
@@ -717,16 +733,30 @@ def phase_lm(torch, dev, prof_ok):
                 f"{arch}: sampled tokens out of range")
         launches.update(got)
         shapes.update(common.LAST_SHAPES)
+        bounds = BF16_CONSISTENCY[arch]
         err, rel, warm_ms, scale = lm_consistency(
             torch, model, params, prompts, LM_PROMPT, LM_CHECK)
         log(f"{arch}: warm prefill {LM_BATCH}x{LM_PROMPT} {warm_ms:.2f} ms; "
             f"bf16 prefill({LM_PROMPT})+{LM_CHECK} steps vs prefill("
             f"{LM_PROMPT + LM_CHECK}): max err {err:.4g} x scale, rel L2 "
-            f"{rel:.4g} (bounds {BF16_CONSISTENCY}, max |logit| {scale:.4g});"
+            f"{rel:.4g} (bounds {bounds}, max |logit| {scale:.4g});"
             f" peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        require(err <= BF16_CONSISTENCY[0] and rel <= BF16_CONSISTENCY[1],
+        require(err <= bounds[0] and rel <= bounds[1],
                 f"{arch}: decode disagrees with prefill")
+        gaps = []
+        for depth in LM_DEPTHS[arch]:
+            sub, sub_params = first_layers(cfg, params, depth)
+            e, r, _, sc = lm_consistency(torch, build_model(sub), sub_params,
+                                         prompts, LM_PROMPT, LM_CHECK)
+            gaps.append(f"{depth} layers {e:.4g} / {r:.4g} (max |logit| "
+                        f"{sc:.4g})")
+            require(e <= bounds[0] and r <= bounds[1],
+                    f"{arch}: decode disagrees with prefill over the first "
+                    f"{depth} layers")
+        log(f"{arch}: bf16 prefill/decode gap (max err x scale / rel L2) "
+            f"over the first layers: " + "; ".join(gaps)
+            + f"; {cfg.num_layers} layers {err:.4g} / {rel:.4g}")
         if prof_ok:
             profile_serving(torch, model, params, prompts[:, :LM_PROMPT], arch)
         del params, model, prompts
@@ -748,6 +778,24 @@ def profile_serving(torch, model, params, prompt, arch):
              lambda: model.serve_step(params, cache, {"tokens": tok}))
 
 
+def first_layers(cfg, params, depth):
+    """(config, params) of the model made of the first ``depth`` layers
+    (whole pattern periods) and the same embedding and head: views of the
+    stacked period weights, no copy."""
+    import dataclasses
+    sub = dataclasses.replace(cfg, num_layers=depth)
+    require(depth < cfg.num_layers and sub.num_remainder_layers == 0,
+            f"{depth} is not a prefix of whole periods")
+
+    def take(tree):
+        return ({k: take(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[:sub.num_full_periods])
+    out = {k: v for k, v in params.items()
+           if k != "blocks" and not k.startswith("rem")}
+    out["blocks"] = take(params["blocks"])
+    return sub, out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -758,7 +806,9 @@ def _leaves(tree):
 
 def timing_case(torch, dev, name, shp):
     """(kernel call, plain call, library call or None, tolerance, bytes
-    per element) for one kernel at shapes ``shp``."""
+    per element) for one kernel at shapes ``shp``.  For attention the
+    library call (bf16 tensor cores, bf16 probabilities) is held to the
+    plain version at the sweep's 3e-2 only."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -780,7 +830,7 @@ def timing_case(torch, dev, name, shp):
                                           window=window),
                 lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                        attn_mask=mask),
-                (3e-2, 3e-2), 2)
+                BF16_ATTN_TOL, 2)
     if name == "wkv":
         (B, T, H, hd), = shp
         args = wkv_inputs(torch, B, T, H, hd, 93, dev)
@@ -809,6 +859,24 @@ def timing_case(torch, dev, name, shp):
             lambda: torch.cdist(x, y, p=1), (1e-5, 1e-5), 4)
 
 
+def attention_f32_check(torch, dev, shp):
+    """The attention kernel on f32 inputs at the path's shape against its
+    plain version; returns the max abs error."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.float32, 95, dev)
+    got = flash_attention_cuda(q, k, v, causal=bool(causal), window=window)
+    want = ref.attention_ref(q, k, v, causal=bool(causal), window=window)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    require(bool((err <= F32_ATTN_TOL[0]
+                  + F32_ATTN_TOL[1] * want.abs()).all()),
+            f"attention f32: max abs err {float(err.max()):.3g} over "
+            f"tolerance at {shp}")
+    return float(err.max())
+
+
 def phase_timing(torch, dev, launches, shapes, prof_ok):
     rows = []
     for name in TPU_KERNELS:
@@ -820,12 +888,19 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
         err = float((got - want).abs().max())
         require(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
                 f"{name}: max abs err {err:.3g} over tolerance at {shp}")
+        rel = float((got - want).norm() / want.norm())
         if library is not None:
+            lib_tol = (3e-2, 3e-2) if name == "attention" else (atol, rtol)
             lib_out = library().float().reshape(want.shape)
-            require(bool(torch.allclose(lib_out, want, atol=atol,
-                                        rtol=rtol)),
+            require(bool(torch.allclose(lib_out, want, atol=lib_tol[0],
+                                        rtol=lib_tol[1])),
                     f"{name}: the library yardstick computes another "
                     f"function")
+        if name == "attention":
+            log(f"attention at {shp}: bf16 max abs err {err:.3g} (atol "
+                f"{atol} + rtol {rtol}), rel L2 {rel:.3g}; f32 max abs err "
+                f"{attention_f32_check(torch, dev, shp):.3g} (atol "
+                f"{F32_ATTN_TOL[0]} + rtol {F32_ATTN_TOL[1]})")
         ms = time_ms(torch, kern)
         clock_power = smi("clocks.sm,power.draw")
         plain_ms = time_ms(torch, plain)

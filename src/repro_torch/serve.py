@@ -43,14 +43,14 @@ def _sync(device):
 
 
 def generate(model, params, prompt, gen_len: int, *, temperature=0.0,
-             generator=None, cache_len=None):
+             generator=None):
     """Prefill ``prompt`` [B, P] and decode ``gen_len`` tokens.
 
     Returns (tokens [B, gen_len], stats) where stats holds the prefill
     time, the decode rate and the kernel launches of each phase (from
     ``kernels.common.LAUNCHES``)."""
     B, P = prompt.shape
-    cache_len = cache_len or P + gen_len + 8
+    cache_len = P + gen_len + 8
     dev = prompt.device
     launches = [collections.Counter(common.LAUNCHES)]
     _sync(dev)

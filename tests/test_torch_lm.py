@@ -10,7 +10,16 @@ and time-mix output, where the port's step-by-step recurrence stands
 against the JAX model's chunked log-space form (exp of cumulative log
 decays), at rtol 1e-4 (one element of rwkv6's reduced prefill state is
 1.1e-5 off at 0.07); and bf16 rope, where sin/cos round to bf16 in both
-packages, at one bf16 step (8e-3 relative)."""
+packages, at one bf16 step (8e-3 relative).
+
+The bf16 case (the full configs' dtype) cannot be held to the JAX
+package's bf16 logits at such tolerances: XLA and torch round bf16
+intermediates in other places, and the two lie as far apart as each lies
+from the f32 function.  It is held instead to the size of the
+reference's own bf16 error: against the f32 function (the JAX package in
+f32 on the same bf16 weights), the port's worst error over the prefill
+and the decode steps stays within ``BF16_SPREAD`` times the JAX package's
+in bf16."""
 import dataclasses
 import functools
 
@@ -38,6 +47,9 @@ from repro_torch.serve import generate
 ATOL = RTOL = 1e-5
 LOGIT_TOL = 1e-4
 STATE_RTOL = 1e-4
+# the port's worst readings reach 1.35x the reference's (recurrentgemma-2b
+# at 5 layers); moving rms_norm's arithmetic from f32 to bf16 gives 1.55x
+BF16_SPREAD = 1.5
 CASES = {"rg3": ("recurrentgemma-2b", {}),
          "rg5": ("recurrentgemma-2b", {"num_layers": 5}),
          "rwkv": ("rwkv6-3b", {})}
@@ -348,3 +360,57 @@ def test_generate_entry_point_greedy_matches_serve_steps():
                           generator=g)
     assert sampled.shape == (2, 4)
     assert int(sampled.max()) < tcfg.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# bf16
+
+
+def bf16_spread(got, want):
+    """(max abs error over max(1, max |want|), relative L2 error)."""
+    got, want = (np.asarray(a, np.float32) for a in (got, want))
+    return np.array([np.abs(got - want).max() / max(1.0, np.abs(want).max()),
+                     np.linalg.norm(got - want) / np.linalg.norm(want)])
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_serving_error_within_the_references(case):
+    """bf16 weights and activations, prefill of 20 tokens then 24
+    teacher-forced serve_steps past the window: the port's logits lie no
+    further from the f32 function (the JAX package in f32 on the same
+    weights) than BF16_SPREAD times the JAX package's own bf16 logits do,
+    in max abs error over scale and in relative L2, worst over the prefill
+    and every step."""
+    arch, kw = CASES[case]
+    bf = {"dtype": "bfloat16", "param_dtype": "bfloat16"}
+    jcfg, tcfg = (get(arch).reduced(**kw, **bf)
+                  for get in (j_get_config, get_config))
+    fcfg = j_get_config(arch).reduced(**kw)
+    jp = JT.init(jax.random.key(0), jcfg)
+    fp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    tp = convert.lm_params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    assert tp["embed"].dtype == torch.bfloat16
+    toks = tokens(np.random.default_rng(2), jcfg, 2, P + STEPS)
+    b = {"tokens": jnp.asarray(toks[:, :P])}
+    jl, _, jc = jax.jit(lambda p, b: JT.forward(
+        p, jcfg, b, collect_cache=True, cache_len=CACHE_LEN))(jp, b)
+    fl, _, fc = jax.jit(lambda p, b: JT.forward(
+        p, fcfg, b, collect_cache=True, cache_len=CACHE_LEN))(fp, b)
+    tl, _, tc = TT.forward(tp, tcfg, {"tokens": t(toks[:, :P]).long()},
+                           collect_cache=True, cache_len=CACHE_LEN)
+    assert tl.dtype == torch.float32
+    port, ref = [bf16_spread(tl, fl)], [bf16_spread(jl, fl)]
+    jstep = jax.jit(lambda p, c, b: JT.serve_step(p, jcfg, c, b))
+    fstep = jax.jit(lambda p, c, b: JT.serve_step(p, fcfg, c, b))
+    for i in range(P, P + STEPS):
+        tok = toks[:, i:i + 1]
+        jl, jc = jstep(jp, jc, {"tokens": jnp.asarray(tok)})
+        fl, fc = fstep(fp, fc, {"tokens": jnp.asarray(tok)})
+        tl, tc = TT.serve_step(tp, tcfg, tc, {"tokens": t(tok).long()})
+        assert bool(torch.isfinite(tl).all())
+        port.append(bf16_spread(tl, fl))
+        ref.append(bf16_spread(jl, fl))
+    port, ref = np.max(port, axis=0), np.max(ref, axis=0)
+    print(f"{case} bf16 vs f32, max err x scale and rel L2: port {port}, "
+          f"reference {ref}, ratio {port / ref}")
+    assert (port <= BF16_SPREAD * ref).all(), (port, ref)
