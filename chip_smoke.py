@@ -8,7 +8,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
   1. builds the port's kernels from the sources in this checkout: the
      four CUDA C++ sources (``persample_gradnorm``, ``flash_attention``,
      ``wkv``, ``rglru_scan``) with one nvcc each, all at once, the Triton
-     ``wemd_add`` / ``wemd_swap`` on their first launch;
+     ``wemd_add`` / ``wemd_swap`` on their first launch; prints ptxas's
+     registers, spills and warnings for ``flash_attention.cu``'s kernels;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5, sigma to 1e-3, gi_sq to atol
@@ -48,7 +49,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      also in f32 at that shape, atol 3e-5 / rtol 1e-4): ``ms`` is
      the median per-call time of back-to-back calls by CUDA events (what
      a caller pays, launch included), ``device_ms`` the kernels' own
-     device time from a ``torch.profiler`` trace.
+     device time from a ``torch.profiler`` trace; for attention also the
+     rate over the visible pairs (``tflops``) and the share of the bound
+     (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -357,6 +360,34 @@ def phase_build(torch, dev):
         f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items())
         + f"); triton first launch wemd_add {times['wemd_add']:.2f} s, "
         f"wemd_swap {times['wemd_swap']:.2f} s")
+    lib = common.load_library("flash_attention.cu")
+    log("ptxas, flash_attention.cu: " + ptxas_summary(
+        common.BUILD_LOGS.get("flash_attention.cu", ""))
+        + "; dynamic shared memory a block: " + ", ".join(
+            f"{route} hd{hd} {lib.flash_attention_smem_bytes(hd, dt)} B"
+            for dt, route in ((1, "bf16"), (0, "f32"))
+            for hd in K4.HEAD_SIZES))
+
+
+def ptxas_summary(text: str) -> str:
+    """Registers, spills and static shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log, and every ptxas warning (``wgmma``
+    serialisation among them).  The kernels' shared memory is dynamic,
+    so ptxas does not see it: ``flash_attention_smem_bytes`` reports it."""
+    import re
+    out, name = [], "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
+            name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} hd{m[2]}"
+                    if m else line.split("'")[1])
+        elif "spill stores" in line:
+            out.append(f"{name}: {line.strip()}")
+        elif "Used" in line and "registers" in line:
+            out[-1] += "; " + line.split(":", 1)[1].strip()
+        elif "warning" in line:
+            out.append(line.strip())
+    return " | ".join(out) if out else "no report (library was cached)"
 
 
 def phase_kernel_checks(torch, dev):
@@ -907,16 +938,29 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
         lib_ms = time_ms(torch, library) if library else None
         b_ms, b_by = bound(name, shp, itemsize)
         route, src = SOURCES[name]
-        rows.append({"name": name, "route": route, "source": src,
-                     "replaces": TPU_KERNELS[name],
-                     "launches": int(launches[name]), "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib_ms,
-                     "device_ms": device_ms(torch, kern) if prof_ok else None,
-                     "plain_device_ms": (device_ms(torch, plain)
-                                         if prof_ok else None),
-                     "sm_clock_power_after": clock_power,
-                     "shape": [list(s) for s in shp]})
+        row = {"name": name, "route": route, "source": src,
+               "replaces": TPU_KERNELS[name],
+               "launches": int(launches[name]), "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_ms,
+               "device_ms": device_ms(torch, kern) if prof_ok else None,
+               "plain_device_ms": (device_ms(torch, plain)
+                                   if prof_ok else None),
+               "sm_clock_power_after": clock_power,
+               "shape": [list(s) for s in shp]}
+        if name == "attention":
+            # the rate over the visible pairs (4 hd FLOPs each) and the
+            # share of the bound, both from the device time (else ms)
+            t = row["device_ms"] or ms
+            (B, H, S, hd), (_, _, T, _), (causal, window) = shp
+            flops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
+            row["tflops"] = flops / t / 1e9
+            row["bound_share"] = b_ms / t
+            log(f"attention bf16 at {shp}: {row['tflops']:.1f} TFLOP/s over "
+                f"the visible pairs, {100 * row['bound_share']:.1f} % of the "
+                f"bound ({b_ms:.4f} ms over {t:.4f} ms); library "
+                f"{lib_ms:.4f} ms")
+        rows.append(row)
     log("kernels: " + "; ".join(
         f"{r['name']} median {r['ms']:.4f} ms per call, device "
         f"{r['device_ms']} ms, at {r['shape']} (plain {r['plain_ms']:.4f}"

@@ -27,13 +27,15 @@ from pathlib import Path
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAST_SHAPES: dict = {}
-# seconds spent in nvcc by this process, per source (0 when cached)
+# seconds spent in nvcc by this process, per source (0 when cached), and
+# ptxas's report of each kernel's registers, spills and shared memory
 BUILD_SECONDS: dict = {}
+BUILD_LOGS: dict = {}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def count_launch(name: str, *shapes) -> None:
@@ -76,6 +78,7 @@ def load_library(source: str) -> ctypes.CDLL:
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
         BUILD_SECONDS[source] = time.perf_counter() - t0
+        BUILD_LOGS[source] = proc.stderr
     else:
         BUILD_SECONDS.setdefault(source, 0.0)
     return ctypes.CDLL(str(out))

@@ -3,14 +3,18 @@
 Replaces ``repro/kernels/flash_attention.py:flash_attention``.  The
 kernel is ``csrc/flash_attention.cu`` (its header says how it is laid
 out and what bounds it); it is built with ``nvcc`` on first use and
-called through ``ctypes``.
+called through ``ctypes``.  The dtype picks its route: bf16 runs on the
+tensor cores (``wgmma``, P split into bf16 hi + lo), f32 on the CUDA
+cores.
 
   * ``flash_attention_cuda`` q [B, H, S, hd], k/v [B, KV, T, hd] (KV
     divides H; f32 or bf16, all one dtype) -> [B, H, S, hd] in q's dtype.
 
 The tensors may be strided views (only the last axis must be
 contiguous): the model passes its [B, S, H, hd] projections transposed,
-and gets back a [B, H, S, hd] view of [B, S, H, hd] memory.
+and gets back a [B, H, S, hd] view of [B, S, H, hd] memory.  The bf16
+route copies rows in 16-byte pieces, so there the data must be 16-byte
+aligned and every stride a multiple of 8 elements.
 """
 from __future__ import annotations
 
@@ -56,6 +60,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("attention kernel needs a contiguous last axis")
+    if q.dtype == torch.bfloat16 and any(
+            x.data_ptr() % 16 or any(x.stride(i) % 8 for i in range(3)
+                                     if x.shape[i] > 1) for x in (q, k, v)):
+        raise ValueError("bf16 attention kernel needs 16-byte aligned q, k, "
+                         "v with strides in multiples of 8 elements")
     out = torch.empty((B, S, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B * H * S == 0:

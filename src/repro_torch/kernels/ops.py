@@ -5,7 +5,9 @@ version in ``ref.py``; any other device raises.  There is no fallback:
 a kernel that fails to build or launch raises.  Inputs are cast to f32
 here, exactly as the Pallas wrappers of ``repro.kernels`` cast them, so
 both routes compute the same f32 function; attention alone takes bf16
-as it comes and upcasts inside, as the Pallas kernel does.
+as it comes, as the Pallas kernel does, and sums in f32 (its kernel's
+bf16 route multiplies on the tensor cores, to one bf16 step of the f32
+function).
 """
 from __future__ import annotations
 

@@ -135,6 +135,47 @@ def test_attention_kernel_bf16_shared_kv_and_strides(cuda):
         atol=3e-5, rtol=1e-4)
 
 
+# The bf16 route (tensor cores) against its f32-accumulated plain version
+# at one bf16 step, chip_smoke.py's BF16_ATTN_TOL: both round one f32
+# function to bf16 once.  B, H, KV, S, T, hd; S and T off the kernel's
+# 128-query and 64-key tiles; KV groups of 1, 2 and 10 query heads.
+BF16_ATTN_TOL = (1e-3, 8e-3)
+BF16_ATTN_CASES = [(1, 2, 2, 257, 257, 32), (2, 2, 1, 300, 300, 64),
+                   (1, 4, 2, 257, 300, 128), (1, 10, 1, 300, 300, 256),
+                   (1, 2, 2, 100, 300, 64),     # T > S: right-aligned
+                   (1, 10, 1, 300, 100, 256)]   # T < S: causal rows see no key
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd", BF16_ATTN_CASES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100),
+                                           (False, 0)])
+def test_attention_kernel_bf16_on_card(cuda, B, H, KV, S, T, hd, causal,
+                                       window):
+    """Read through the model's [B, S, H, hd] strides; window 100 cuts
+    inside a 64-key tile."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    rng = np.random.default_rng(S + T + hd + H + window)
+    q = torch.as_tensor(randn(rng, (B, S, H, hd)), device=cuda)
+    kv = torch.as_tensor(randn(rng, (2, B, T, KV, hd)), device=cuda)
+    args = [x.to(torch.bfloat16).transpose(1, 2) for x in (q, kv[0], kv[1])]
+    out = flash_attention_cuda(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == (B, H, S, hd)
+    want = tref.attention_ref(*args, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=BF16_ATTN_TOL[0], rtol=BF16_ATTN_TOL[1])
+
+
+@pytest.mark.requires_cuda
+def test_attention_kernel_bf16_refuses_unaligned_rows(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    x = torch.zeros(1, 1, 9 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    q = x[..., 4:].view(1, 1, 9, 64)           # 8 bytes past 16-byte alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, q, q)
+
+
 def wkv_inputs(rng, B, T, H, hd, device):
     r = randn(rng, (B, T, H, hd))
     k = randn(rng, (B, T, H, hd), scale=0.3)

@@ -3,6 +3,8 @@ against ``repro.kernels.ref`` and the interpret-mode Pallas kernels, at
 ``tests/test_kernels.py``'s shapes and tolerances.  The hand-written
 kernels are held against these plain versions on the card in
 ``tests/test_torch_kernels_cuda.py``."""
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,6 +73,123 @@ def test_attention_plain_bf16_and_shared_kv_heads():
                               *(jnp.asarray(np.repeat(x, 2, axis=1))
                                 for x in kv1), causal=True, window=16)
     np.testing.assert_allclose(got.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+# chip_smoke.py's tolerance for the bf16 kernel against the plain version
+BF16_ATTN_TOL = dict(atol=1e-3, rtol=8e-3)
+
+
+def tensor_core_attention(q, k, v, *, causal, window, split=True, bm=128,
+                          bn=64):
+    """The bf16 route of ``csrc/flash_attention.cu`` in plain torch, in
+    f32: blocks of ``bm`` query rows visit only the ``bn``-key tiles that
+    the causal and window edges let through, with an online softmax in
+    base 2, and P V is two bf16 products (hi = bf16(p), lo = bf16(p -
+    hi)) summed in f32, or one (``split=False``).  q.k of bf16 inputs is
+    exact per product, as on the tensor cores.  Returns (out, visited
+    tiles, tiles a dense loop would visit)."""
+    B, H, S, hd = q.shape
+    T = k.shape[2]
+    G = H // k.shape[1]
+    qf = q.float()
+    kf, vf = (x.float().repeat_interleave(G, dim=1) for x in (k, v))
+    pad = (-T) % bn                                 # zero rows, as cp.async fills
+    kf, vf = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (kf, vf))
+    scale2 = math.log2(math.e) / math.sqrt(hd)
+    off = T - S
+    ok_all = torch.ones(S, T + pad, dtype=torch.bool)
+    qi = torch.arange(S)[:, None] + off
+    ki = torch.arange(T + pad)[None, :]
+    ok_all &= ki < T
+    if causal:
+        ok_all &= ki <= qi
+    if window > 0:
+        ok_all &= ki > qi - window
+    out = torch.empty(B, H, S, hd)
+    visited = 0
+    for q0 in range(0, S, bm):
+        q1 = min(q0 + bm, S)
+        qp_first, qp_last = q0 + off, q1 - 1 + off
+        k_begin, k_end = 0, T
+        if causal:
+            k_end = min(T, qp_last + 1)
+        if window > 0:
+            k_begin = max(0, qp_first - window + 1)
+        if causal and qp_first < 0:
+            k_begin, k_end = 0, T
+        tiles = range((k_begin // bn) * bn, k_end, bn)
+        seen = torch.zeros(T + pad, dtype=torch.bool)
+        m = torch.full((B, H, q1 - q0), -1e30)
+        l = torch.zeros(B, H, q1 - q0)
+        acc = torch.zeros(B, H, q1 - q0, hd)
+        for kt in tiles:
+            visited += 1
+            seen[kt:kt + bn] = True
+            ok = ok_all[q0:q1, kt:kt + bn]
+            s = torch.einsum("bhsd,bhtd->bhst", qf[:, :, q0:q1],
+                             kf[:, :, kt:kt + bn]) * scale2
+            s = torch.where(ok, s, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            p = torch.where(ki[:, kt:kt + bn] < T, p, 0.0)
+            hi = p.to(torch.bfloat16).float()
+            pv = hi @ vf[:, :, kt:kt + bn]
+            if split:
+                pv = pv + (p - hi).to(torch.bfloat16).float() \
+                    @ vf[:, :, kt:kt + bn]
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+        # the tiles left out hold no key that a row of the block may see
+        assert not (ok_all[q0:q1] & ~seen).any()
+        out[:, :, q0:q1] = acc / l.clamp_min(1e-30)[..., None]
+    return out, visited, -(-S // bm) * -(-T // bn)
+
+
+# B, H, KV, S, T, hd, causal, window: the window cuts inside a tile; T > S
+# (right-aligned queries); T < S (causal rows that see no key); KV groups
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,window", [
+    (1, 4, 2, 300, 300, 64, True, 100),
+    (1, 2, 1, 100, 300, 32, True, 0),
+    (1, 2, 2, 300, 64, 64, True, 0),
+    (2, 2, 2, 200, 200, 128, False, 0),
+    (1, 2, 1, 257, 257, 256, True, 70),
+    (1, 2, 2, 300, 300, 128, True, 0),
+])
+def test_tensor_core_attention_numerics(B, H, KV, S, T, hd, causal, window):
+    """The design of the kernel's bf16 route (tile loop, visited-tile cut,
+    all-masked rows, P split into bf16 hi + lo) held to the plain version
+    and to the interpret-mode Pallas kernel at the card's bf16 tolerance;
+    before the output's rounding, the split keeps the f32 function to
+    1e-4 where one bf16 rounding of P does not."""
+    rng = np.random.default_rng(S + T + hd + window)
+    q = t(randn(rng, (B, H, S, hd))).to(torch.bfloat16)
+    k, v = (t(randn(rng, (B, KV, T, hd))).to(torch.bfloat16)
+            for _ in range(2))
+    out, visited, dense = tensor_core_attention(q, k, v, causal=causal,
+                                                window=window)
+    want = tref.attention_ref(q.float(), k.float(), v.float(),
+                              causal=causal, window=window)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=1e-4,
+                               rtol=1e-4)
+    single, _, _ = tensor_core_attention(q, k, v, causal=causal,
+                                         window=window, split=False)
+    assert (single - want).abs().max() > 1e-4
+    if window or (causal and S == T):       # the edges cut the loop
+        assert visited < dense
+    got = out.to(torch.bfloat16).float().numpy()
+    np.testing.assert_allclose(
+        got, tref.attention_ref(q, k, v, causal=causal,
+                                window=window).float().numpy(),
+        **BF16_ATTN_TOL)
+    G = H // KV
+    pallas = flash_attention(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+          for x in (q, k.repeat_interleave(G, 1), v.repeat_interleave(G, 1))),
+        causal=causal, window=window, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas, np.float32),
+                               **BF16_ATTN_TOL)
 
 
 def wkv_inputs(rng, B, T, H, hd):
