@@ -6,16 +6,17 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
   1. builds the port's kernels from the sources in this checkout: the
-     four CUDA C++ sources (``persample_gradnorm``, ``flash_attention``,
-     ``wkv``, ``rglru_scan``) with one nvcc each, all at once, the Triton
-     ``wemd_add`` / ``wemd_swap`` on their first launch; prints ptxas's
-     registers, spills and warnings for ``flash_attention.cu``'s kernels;
+     five CUDA C++ sources (``wemd``, ``persample_gradnorm``,
+     ``flash_attention``, ``wkv``, ``rglru_scan``) with one nvcc each,
+     all at once; prints ptxas's registers, spills and warnings for the
+     kernels of ``wemd.cu`` and ``flash_attention.cu``;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
-     round's shapes (``wemd_*`` to 1e-5, sigma to 1e-3, gi_sq to atol
-     1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16 atol 1e-3 / rtol
-     8e-3, tighter than the sweep's 3e-2; wkv atol 2e-3 with the w=1e-4
-     case; rglru 1e-5);
+     round's shapes (``wemd_*`` to 1e-5 on f32 and on f64 inputs, the f64
+     output bitwise equal to the output on the f32-cast inputs; sigma to
+     1e-3, gi_sq to atol 1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16
+     atol 1e-3 / rtol 8e-3, tighter than the sweep's 3e-2; wkv atol 2e-3
+     with the w=1e-4 case; rglru 1e-5);
   3. solves 50 seeded random P1 problems with the torch scheduler on the
      card and requires the numpy solvers' masks and iteration counts;
   4. drives the FL main path: ``FederatedTrainer`` on the full-width
@@ -49,9 +50,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      also in f32 at that shape, atol 3e-5 / rtol 1e-4): ``ms`` is
      the median per-call time of back-to-back calls by CUDA events (what
      a caller pays, launch included), ``device_ms`` the kernels' own
-     device time from a ``torch.profiler`` trace; for attention also the
-     rate over the visible pairs (``tflops``) and the share of the bound
-     (``bound_share``, bound over device time).
+     device time from a ``torch.profiler`` trace; for the WEMD kernels
+     also ``path_ms``, the call as the scheduler makes it (``ops.wemd_*``
+     on f64 inputs, bitwise equal to ``ms``'s call on the cast inputs);
+     for attention also the rate over the visible pairs (``tflops``) and
+     the share of the bound (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -86,8 +89,8 @@ TPU_KERNELS = {
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
-    "wemd_add": ("triton", "src/repro_torch/kernels/wemd_swap.py"),
-    "wemd_swap": ("triton", "src/repro_torch/kernels/wemd_swap.py"),
+    "wemd_add": ("cuda", CSRC + "wemd.cu"),
+    "wemd_swap": ("cuda", CSRC + "wemd.cu"),
     "persample_gradnorm": ("cuda", CSRC + "persample_gradnorm.cu"),
     "attention": ("cuda", CSRC + "flash_attention.cu"),
     "wkv": ("cuda", CSRC + "wkv.cu"),
@@ -141,17 +144,18 @@ def require(cond: bool, msg: str) -> None:
 # kernel inputs, plain versions, library yardsticks and bounds
 
 
-def wemd_inputs(torch, B, V, C, size, seed, device):
+def wemd_inputs(torch, B, V, C, size, seed, device, dtype=None):
+    """f32 inputs, or f64 as the scheduler keeps them."""
     import numpy as np
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
     p_dev = torch.tensor(rng.dirichlet(np.full(C, 0.4), size=(B, V)),
-                         dtype=torch.float32, device=device)
+                         dtype=dtype, device=device)
     p_sum = p_dev[:, :size].sum(dim=1)
     gd = p_dev.mean(dim=1)
-    cw = torch.tensor(rng.uniform(0.5, 1.5, (B, C)), dtype=torch.float32,
+    cw = torch.tensor(rng.uniform(0.5, 1.5, (B, C)), dtype=dtype,
                       device=device)
-    sizes = torch.full((B,), float(size), dtype=torch.float32,
-                       device=device)
+    sizes = torch.full((B,), float(size), dtype=dtype, device=device)
     return p_sum, p_dev, gd, cw, sizes
 
 
@@ -337,29 +341,23 @@ def device_ms(torch, fn):
 def phase_build(torch, dev):
     from concurrent.futures import ThreadPoolExecutor
 
-    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import common
     from repro_torch.kernels import flash_attention as K4
     from repro_torch.kernels import persample_gradnorm as K3
     from repro_torch.kernels import rglru_scan as K6
     from repro_torch.kernels import rwkv_scan as K5
+    from repro_torch.kernels import wemd_swap as K12
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:     # one nvcc per source, at once
-        for f in [pool.submit(m._launcher) for m in (K3, K4, K5, K6)]:
+    with ThreadPoolExecutor(5) as pool:     # one nvcc per source, at once
+        for f in [pool.submit(fn) for fn in (K12._launchers, K3._launcher,
+                                             K4._launcher, K5._launcher,
+                                             K6._launcher)]:
             f.result()
-    t_nvcc = time.perf_counter() - t0
-    times = {}
-    for name, fn, args in (
-            ("wemd_add", ops.wemd_add, wemd_inputs(torch, 1, 8, 10, 3, 0, dev)),
-            ("wemd_swap", ops.wemd_swap,
-             wemd_inputs(torch, 1, 8, 10, 3, 0, dev))):
-        t0 = time.perf_counter()
-        fn(*args)
-        torch.cuda.synchronize()
-        times[name] = time.perf_counter() - t0
-    log(f"build: nvcc of 4 sources in parallel {t_nvcc:.2f} s (" + ", ".join(
-        f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items())
-        + f"); triton first launch wemd_add {times['wemd_add']:.2f} s, "
-        f"wemd_swap {times['wemd_swap']:.2f} s")
+    log(f"build: nvcc of 5 sources in parallel "
+        f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
+            f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items()) + ")")
+    log("ptxas, wemd.cu: " + ptxas_summary(
+        common.BUILD_LOGS.get("wemd.cu", "")))
     lib = common.load_library("flash_attention.cu")
     log("ptxas, flash_attention.cu: " + ptxas_summary(
         common.BUILD_LOGS.get("flash_attention.cu", ""))
@@ -372,18 +370,25 @@ def phase_build(torch, dev):
 def ptxas_summary(text: str) -> str:
     """Registers, spills and static shared memory of each kernel in an
     ``nvcc -Xptxas -v`` log, and every ptxas warning (``wgmma``
-    serialisation among them).  The kernels' shared memory is dynamic,
-    so ptxas does not see it: ``flash_attention_smem_bytes`` reports it."""
+    serialisation among them).  The attention kernels' shared memory is
+    dynamic, so ptxas does not see it: ``flash_attention_smem_bytes``
+    reports it."""
     import re
     out, name = [], "?"
     for line in text.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
-            name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} hd{m[2]}"
-                    if m else line.split("'")[1])
+            w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
+            if m:
+                name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
+                        f"hd{m[2]}")
+            elif w:
+                name = f"{w[1]} {'f64' if w[2] == 'd' else 'f32'} inputs"
+            else:
+                name = line.split("'")[1]
         elif "spill stores" in line:
             out.append(f"{name}: {line.strip()}")
-        elif "Used" in line and "registers" in line:
+        elif "Used" in line and "registers" in line and out:
             out[-1] += "; " + line.split(":", 1)[1].strip()
         elif "warning" in line:
             out.append(line.strip())
@@ -394,7 +399,6 @@ def phase_kernel_checks(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.persample_gradnorm import (
         persample_gradnorm_cuda, persample_gradnorm_cuda_batched)
-    from repro_torch.kernels.wemd_swap import wemd_add_triton, wemd_swap_triton
     worst = {}
 
     def close(name, got, want, atol, rtol):
@@ -404,20 +408,7 @@ def phase_kernel_checks(torch, dev):
                 f"{name}: max abs err {float(err.max()):.3g} over tolerance")
         worst[name] = max(worst.get(name, 0.0), float(err.max()))
 
-    swap_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
-                   (1, 130, 130), (2, 19, 11), (32, 19, 10), (32, 64, 10)]
-    for i, (B, V, C) in enumerate(swap_shapes):
-        args = wemd_inputs(torch, B, V, C, min(5, V), 10 + i, dev)
-        out = wemd_swap_triton(*args)
-        require(tuple(out.shape) == (B, V, V), "wemd_swap shape")
-        close("wemd_swap", out, ref.wemd_swap_ref(*args), 1e-5, 1e-5)
-    add_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
-                  (1, 19, 10), (1, 64, 10)]
-    for i, (B, V, C) in enumerate(add_shapes):
-        args = wemd_inputs(torch, B, V, C, min(3, V), 30 + i, dev)
-        out = wemd_add_triton(*args)
-        require(tuple(out.shape) == (B, V), "wemd_add shape")
-        close("wemd_add", out, ref.wemd_add_ref(*args), 1e-5, 1e-5)
+    wemd_checks(torch, dev, close)
     for i, (B, d, C) in enumerate([(64, 120, 10), (100, 512, 100),
                                    (32, 48, 5), (130, 64, 16),
                                    (32, 120, 10)]):
@@ -435,6 +426,39 @@ def phase_kernel_checks(torch, dev):
     lm_kernel_checks(torch, dev, close)
     log("kernels vs plain: " + ", ".join(
         f"{k} max abs err {v:.3g}" for k, v in worst.items()))
+
+
+def wemd_checks(torch, dev, close):
+    """Both WEMD kernels against their plain versions to 1e-5 at the sweep
+    and the round's shapes, on f32 inputs and on f64 inputs (the
+    scheduler's); the f64 output must be bitwise the output on the
+    f32-cast inputs.  (2, 300, 10) takes more than one block of devices."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
+    f64 = torch.float64
+    swap_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
+                   (1, 130, 130), (2, 19, 11), (32, 19, 10), (32, 64, 10),
+                   (2, 300, 10)]
+    add_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
+                  (1, 19, 10), (1, 64, 10), (1, 130, 130), (2, 300, 10)]
+    for name, kern, plain, shapes, size, seed in (
+            ("wemd_swap", wemd_swap_cuda, ref.wemd_swap_ref, swap_shapes, 5,
+             10),
+            ("wemd_add", wemd_add_cuda, ref.wemd_add_ref, add_shapes, 3, 30)):
+        for i, (B, V, C) in enumerate(shapes):
+            args = wemd_inputs(torch, B, V, C, min(size, V), seed + i, dev)
+            out, want = kern(*args), plain(*args)
+            require(out.shape == want.shape, f"{name} shape")
+            close(name, out, want, 1e-5, 1e-5)
+            a64 = wemd_inputs(torch, B, V, C, min(size, V), seed + i, dev,
+                              f64)
+            a32 = [a.float() for a in a64]
+            out64 = kern(*a64)
+            close(f"{name}.f64", out64, plain(*a32), 1e-5, 1e-5)
+            require(out64.dtype == torch.float32
+                    and torch.equal(out64, kern(*a32)),
+                    f"{name} at {(B, V, C)}: the f64 output is not the "
+                    f"output on the f32-cast inputs")
 
 
 def lm_kernel_checks(torch, dev, close):
@@ -645,10 +669,16 @@ def profile_round(torch, sched_name, tr, solve) -> tuple:
     ``torch.profiler``, held to ``check_round``'s checks: the device's
     busy share of the round's wall time (summed kernel and copy time
     over the host clock, the profiler's own cost included, so a lower
-    bound) and the kernels that took longest.  Returns the round's
-    sigma errors."""
+    bound), the kernels that took longest and the port's kernel launches
+    in the round.  Returns the round's sigma errors."""
+    import collections
+
+    from repro_torch.kernels import common
+    before = collections.Counter(common.LAUNCHES)
     rec = profiled(torch, f"{sched_name} profiled round",
                    lambda: tr.run_round(4))
+    log(f"{sched_name} profiled round: kernel launches "
+        f"{dict(common.LAUNCHES - before)}")
     return check_round(torch, tr, solve, f"{sched_name} profiled round", rec)
 
 
@@ -848,7 +878,7 @@ def timing_case(torch, dev, name, shp):
         persample_gradnorm_cuda_batched)
     from repro_torch.kernels.rglru_scan import rglru_cuda
     from repro_torch.kernels.rwkv_scan import wkv_cuda
-    from repro_torch.kernels.wemd_swap import wemd_add_triton, wemd_swap_triton
+    from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
     if name == "attention":        # at the model's dtype, bf16
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
         q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 92,
@@ -881,13 +911,32 @@ def timing_case(torch, dev, name, shp):
     (B, V, C), = shp
     args = wemd_inputs(torch, B, V, C, max(1, min(5, V)), 91, dev)
     if name == "wemd_add":
-        kern, plain = wemd_add_triton, ref.wemd_add_ref
+        kern, plain = wemd_add_cuda, ref.wemd_add_ref
         x, y = cdist_add(torch, *args)
     else:
-        kern, plain = wemd_swap_triton, ref.wemd_swap_ref
+        kern, plain = wemd_swap_cuda, ref.wemd_swap_ref
         x, y = cdist_swap(torch, *args)
     return (lambda: kern(*args), lambda: plain(*args),
             lambda: torch.cdist(x, y, p=1), (1e-5, 1e-5), 4)
+
+
+def wemd_path(torch, dev, name, shp):
+    """The call as the scheduler makes it: ``ops.wemd_*`` on f64 inputs at
+    shapes ``shp``, held bitwise to the kernel's call on the f32-cast
+    inputs.  Returns the call."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
+    (B, V, C), = shp
+    a64 = wemd_inputs(torch, B, V, C, max(1, min(5, V)), 91, dev,
+                      torch.float64)
+    a32 = [a.float() for a in a64]
+    op, kern = ((ops.wemd_add, wemd_add_cuda) if name == "wemd_add"
+                else (ops.wemd_swap, wemd_swap_cuda))
+    got, want = op(*a64), kern(*a32)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"{name}: ops on f64 inputs is not the "
+            f"kernel on the f32-cast inputs at {shp}")
+    return lambda: op(*a64)
 
 
 def attention_f32_check(torch, dev, shp):
@@ -948,6 +997,8 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
                                    if prof_ok else None),
                "sm_clock_power_after": clock_power,
                "shape": [list(s) for s in shp]}
+        if name in ("wemd_add", "wemd_swap"):
+            row["path_ms"] = time_ms(torch, wemd_path(torch, dev, name, shp))
         if name == "attention":
             # the rate over the visible pairs (4 hd FLOPs each) and the
             # share of the bound, both from the device time (else ms)
@@ -962,7 +1013,9 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
                 f"{lib_ms:.4f} ms")
         rows.append(row)
     log("kernels: " + "; ".join(
-        f"{r['name']} median {r['ms']:.4f} ms per call, device "
+        f"{r['name']} median {r['ms']:.4f} ms per call"
+        + (f" (path {r['path_ms']:.4f} ms)" if "path_ms" in r else "")
+        + f", device "
         f"{r['device_ms']} ms, at {r['shape']} (plain {r['plain_ms']:.4f}"
         f" ms, library {r['library_ms']} ms, bound {r['bound_ms']:.6f} ms, "
         f"max abs err {r['max_abs_err']:.3g}; SM clock, power just after: "

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-  wemd_swap.py           Triton: FSCD swap matrix, GS add row
-                         (replace repro/kernels/wemd_swap.py)
+  wemd_swap.py           CUDA C++ (csrc/wemd.cu): FSCD swap matrix, GS
+                         add row, on f32 or f64 inputs (replace
+                         repro/kernels/wemd_swap.py)
   persample_gradnorm.py  CUDA C++ (csrc/): Eq. 10 sigma-hat for a
                          softmax-CE head (replaces
                          repro/kernels/persample_gradnorm.py)

@@ -4,16 +4,19 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 version in ``ref.py``; any other device raises.  There is no fallback:
 a kernel that fails to build or launch raises.  Inputs are cast to f32
 here, exactly as the Pallas wrappers of ``repro.kernels`` cast them, so
-both routes compute the same f32 function; attention alone takes bf16
-as it comes, as the Pallas kernel does, and sums in f32 (its kernel's
-bf16 route multiplies on the tensor cores, to one bf16 step of the f32
-function).
+both routes compute the same f32 function; two exceptions.  Attention
+takes bf16 as it comes, as the Pallas kernel does, and sums in f32 (its
+kernel's bf16 route multiplies on the tensor cores, to one bf16 step of
+the f32 function).  The WEMD kernels take the scheduler's f64 state as it
+comes and round it to f32 as they load it, the rounding of the cast, so
+no cast kernel is launched in front of them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
 
 
 def _route(x: torch.Tensor) -> str:
@@ -28,22 +31,31 @@ def _f32(*xs):
     return [x.to(torch.float32).contiguous() for x in xs]
 
 
+def _wemd_cuda_args(xs):
+    """The WEMD kernels' inputs on CUDA: f32 or f64 of one dtype as they
+    come (``contiguous`` launches nothing on contiguous input), any other
+    dtype cast to f32."""
+    dtype = xs[1].dtype
+    if dtype in (torch.float32, torch.float64) \
+            and all(x.dtype == dtype for x in xs):
+        return [x.contiguous() for x in xs]
+    return _f32(*xs)
+
+
 def wemd_swap(p_sum, p_dev, global_dist, class_weights, sizes):
     """Dense [B,V,V] swap-candidate WEMD matrix (FSCD inner loop)."""
-    args = _f32(p_sum, p_dev, global_dist, class_weights, sizes)
+    args = (p_sum, p_dev, global_dist, class_weights, sizes)
     if _route(p_dev) == "cuda":
-        from repro_torch.kernels.wemd_swap import wemd_swap_triton
-        return wemd_swap_triton(*args)
-    return ref.wemd_swap_ref(*args)
+        return wemd_swap_cuda(*_wemd_cuda_args(args))
+    return ref.wemd_swap_ref(*_f32(*args))
 
 
 def wemd_add(p_sum, p_dev, global_dist, class_weights, sizes):
     """[B,V] add-candidate WEMD row (GS inner loop)."""
-    args = _f32(p_sum, p_dev, global_dist, class_weights, sizes)
+    args = (p_sum, p_dev, global_dist, class_weights, sizes)
     if _route(p_dev) == "cuda":
-        from repro_torch.kernels.wemd_swap import wemd_add_triton
-        return wemd_add_triton(*args)
-    return ref.wemd_add_ref(*args)
+        return wemd_add_cuda(*_wemd_cuda_args(args))
+    return ref.wemd_add_ref(*_f32(*args))
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0):

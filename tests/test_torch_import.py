@@ -88,11 +88,11 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.persample_gradnorm import (
         persample_gradnorm_cuda, persample_gradnorm_cuda_batched)
-    from repro_torch.kernels.wemd_swap import wemd_add_triton, wemd_swap_triton
+    from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
     p_dev = torch.rand(2, 5, 3)
     args = (p_dev.sum(1), p_dev, p_dev.mean(1), torch.ones(2, 3),
             torch.full((2,), 2.0))
-    for fn in (wemd_add_triton, wemd_swap_triton):
+    for fn in (wemd_add_cuda, wemd_swap_cuda):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
     h, logits = torch.randn(4, 6), torch.randn(4, 3)
@@ -105,3 +105,26 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError, match="no kernel"):
         ops.wemd_add(*meta)
+
+
+def test_wemd_dispatch_passes_f32_and_f64_through():
+    """On the CUDA route the dispatcher hands contiguous f32 or f64 inputs
+    to the kernel as the same tensors (no cast, no copy: the kernel rounds
+    f64 on load), makes strided ones contiguous in their dtype, and casts
+    mixed or other dtypes to f32."""
+    from repro_torch.kernels.ops import _wemd_cuda_args
+    p_dev = torch.rand(2, 5, 3, dtype=torch.float64)
+    args = [p_dev.sum(1), p_dev, p_dev.mean(1), torch.ones(2, 3,
+            dtype=torch.float64), torch.full((2,), 2.0, dtype=torch.float64)]
+    for dtype in (torch.float64, torch.float32):
+        xs = [a.to(dtype) for a in args]
+        assert all(y is x for x, y in zip(xs, _wemd_cuda_args(xs)))
+    strided = [args[0], p_dev.transpose(1, 2).contiguous().transpose(1, 2),
+               *args[2:]]
+    got = _wemd_cuda_args(strided)
+    assert all(x.is_contiguous() and x.dtype == torch.float64 for x in got)
+    torch.testing.assert_close(got[1], p_dev, atol=0, rtol=0)
+    for xs in ([args[0].float()] + args[1:], [a.half() for a in args]):
+        got = _wemd_cuda_args(xs)
+        assert all(x.dtype == torch.float32 and x.is_contiguous()
+                   for x in got)

@@ -46,25 +46,70 @@ def cuda():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,V,C", SWAP_SHAPES + [(32, 19, 10)])
+@pytest.mark.parametrize("B,V,C", SWAP_SHAPES + [(32, 19, 10), (2, 300, 10)])
 def test_wemd_swap_kernel_on_card(cuda, B, V, C):
-    from repro_torch.kernels.wemd_swap import wemd_swap_triton
+    from repro_torch.kernels.wemd_swap import wemd_swap_cuda
     args = to_torch(wemd_inputs(B, V, C, min(5, V), seed=V), cuda)
-    out = wemd_swap_triton(*args)
+    out = wemd_swap_cuda(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, tref.wemd_swap_ref(*args), atol=1e-5,
                                rtol=1e-5)
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,V,C", ADD_SHAPES + [(1, 19, 10)])
+@pytest.mark.parametrize("B,V,C", ADD_SHAPES + [(1, 19, 10), (2, 300, 10)])
 def test_wemd_add_kernel_on_card(cuda, B, V, C):
-    from repro_torch.kernels.wemd_swap import wemd_add_triton
+    from repro_torch.kernels.wemd_swap import wemd_add_cuda
     args = to_torch(wemd_inputs(B, V, C, min(3, V), seed=V), cuda)
-    out = wemd_add_triton(*args)
+    out = wemd_add_cuda(*args)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, tref.wemd_add_ref(*args), atol=1e-5,
                                rtol=1e-5)
+
+
+def wemd_kernel(kind):
+    from repro_torch.kernels import wemd_swap as K
+    return ((K.wemd_add_cuda, tref.wemd_add_ref) if kind == "add"
+            else (K.wemd_swap_cuda, tref.wemd_swap_ref))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["add", "swap"])
+@pytest.mark.parametrize("B,V,C", [(2, 16, 10), (32, 23, 10), (2, 33, 100),
+                                   (1, 130, 130), (2, 300, 10)])
+def test_wemd_kernel_f64_inputs_on_card(cuda, kind, B, V, C):
+    """The scheduler's f64 state goes into the kernel as it is: the output
+    is bitwise the kernel's on the f32-cast inputs, and within 1e-5 of the
+    plain version (the f32 function the Pallas wrappers compute)."""
+    kern, plain = wemd_kernel(kind)
+    rng = np.random.default_rng(V + C)
+    p_dev = rng.dirichlet(np.full(C, 0.4), size=(B, V))
+    size = min(4, V)
+    a64 = to_torch([p_dev[:, :size].sum(axis=1), p_dev, p_dev.mean(axis=1),
+                    rng.uniform(0.5, 1.5, (B, C)),
+                    np.full((B,), float(size))], cuda)
+    assert all(a.dtype == torch.float64 for a in a64)
+    a32 = [a.to(torch.float32) for a in a64]
+    out64, out32 = kern(*a64), kern(*a32)
+    torch.cuda.synchronize()
+    assert out64.dtype == torch.float32
+    assert torch.equal(out64, out32)
+    torch.testing.assert_close(out64, plain(*a32), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["add", "swap"])
+def test_wemd_kernel_refuses_mixed_and_half_inputs(cuda, kind):
+    kern, _ = wemd_kernel(kind)
+    args = to_torch(wemd_inputs(2, 16, 10, 3, seed=1), cuda)
+    mixed = [args[0].double()] + args[1:]
+    with pytest.raises(ValueError, match="one dtype"):
+        kern(*mixed)
+    with pytest.raises(ValueError, match="f32 or f64"):
+        kern(*[a.half() for a in args])
+    with pytest.raises(ValueError, match="contiguous"):
+        kern(args[0], args[1].transpose(1, 2).contiguous().transpose(1, 2),
+             *args[2:])
 
 
 @pytest.mark.requires_cuda

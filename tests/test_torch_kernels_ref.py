@@ -71,15 +71,18 @@ def test_wemd_add_plain_matches_reference(B, V, C):
     np.testing.assert_array_equal(ops.wemd_add(*to_torch(args)).numpy(), got)
 
 
-def test_wemd_ops_cast_f64_inputs_to_f32():
+@pytest.mark.parametrize("kind", ["add", "swap"])
+def test_wemd_ops_cast_f64_inputs_to_f32(kind):
     """The scheduler hands the dispatcher f64 state; both routes compute
     the f32 function the Pallas wrappers compute."""
+    op, pallas = ((ops.wemd_add, wemd_add_pallas) if kind == "add"
+                  else (ops.wemd_swap, wemd_swap_pallas))
     args = wemd_inputs(2, 19, 11, 4, seed=3)
     a64 = [torch.as_tensor(a, dtype=torch.float64) for a in args]
-    out = ops.wemd_swap(*a64)
+    out = op(*a64)
     assert out.dtype == torch.float32
     np.testing.assert_allclose(
-        out.numpy(), wemd_swap_pallas(*to_jax(args), interpret=True),
+        out.numpy(), pallas(*to_jax(args), interpret=True),
         atol=1e-5, rtol=1e-5)
 
 
