@@ -9,14 +9,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      five CUDA C++ sources (``wemd``, ``persample_gradnorm``,
      ``flash_attention``, ``wkv``, ``rglru_scan``) with one nvcc each,
      all at once; prints ptxas's registers, spills and warnings for the
-     kernels of ``wemd.cu`` and ``flash_attention.cu``;
+     kernels of ``wemd.cu``, ``flash_attention.cu`` and ``wkv.cu``;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5 on f32 and on f64 inputs, the f64
      output bitwise equal to the output on the f32-cast inputs; sigma to
      1e-3, gi_sq to atol 1e-2; attention f32 atol 3e-5 / rtol 1e-4, bf16
      atol 1e-3 / rtol 8e-3, tighter than the sweep's 3e-2; wkv atol 2e-3
-     with the w=1e-4 case; rglru 1e-5);
+     / rtol 1e-3 on y and state, with T = 1, T = 17, T = 3072, hd 128
+     and an empty batch, and 1e-3 in the w=1e-4 and w=1e-8 cases; rglru
+     1e-5);
   3. solves 50 seeded random P1 problems with the torch scheduler on the
      card and requires the numpy solvers' masks and iteration counts;
   4. drives the FL main path: ``FederatedTrainer`` on the full-width
@@ -26,9 +28,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      2 host syncs, the numpy solver's mask on the same Problem and
      Eq. 10 sigmas (from the ``persample_gradnorm`` kernel) within
      atol 1e-3 + rtol 1e-3 of the closed form on the same features, and
-     every FL kernel must have been launched in that run; then one more
-     round of each, held to the same checks, under ``torch.profiler``
-     (the device's busy share of the round and its longest kernels);
+     every FL kernel must have been launched in that run; a second
+     ``fedcgd-fscd`` trainer on the same seed must give a bitwise-equal
+     history (records, masks, iteration counts, sigmas) and bitwise-equal
+     params after its 3 rounds; then one more round of each, held to the
+     same checks, under ``torch.profiler`` (the device's busy share of the
+     round and its longest kernels);
   5. drives the LM serving path through ``repro_torch.serve.generate``:
      recurrentgemma-2b, then rwkv6-3b, each at published width and full
      depth in bf16 with seeded random weights, B=4 prompts of 3072
@@ -53,8 +58,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      device time from a ``torch.profiler`` trace; for the WEMD kernels
      also ``path_ms``, the call as the scheduler makes it (``ops.wemd_*``
      on f64 inputs, bitwise equal to ``ms``'s call on the cast inputs);
-     for attention also the rate over the visible pairs (``tflops``) and
-     the share of the bound (``bound_share``, bound over device time).
+     for attention also the rate over the visible pairs (``tflops``);
+     for attention and wkv the share of the bound (``bound_share``, bound
+     over device time).
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -365,6 +371,8 @@ def phase_build(torch, dev):
             f"{route} hd{hd} {lib.flash_attention_smem_bytes(hd, dt)} B"
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
+    log("ptxas, wkv.cu: "
+        + ptxas_summary(common.BUILD_LOGS.get("wkv.cu", "")))
 
 
 def ptxas_summary(text: str) -> str:
@@ -379,11 +387,14 @@ def ptxas_summary(text: str) -> str:
         if "Compiling entry function" in line:
             m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
             w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
+            c = re.search(r"wkv_chunkedILi(\d+)E", line)
             if m:
                 name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
                         f"hd{m[2]}")
             elif w:
                 name = f"{w[1]} {'f64' if w[2] == 'd' else 'f32'} inputs"
+            elif c:
+                name = f"wkv hd{c[1]}"
             else:
                 name = line.split("'")[1]
         elif "spill stores" in line:
@@ -488,19 +499,7 @@ def lm_kernel_checks(torch, dev, close):
         else:
             close("attention.bf16", out.float(), want.float(),
                   *BF16_ATTN_TOL)
-    for i, (B, T, H, hd) in enumerate([(2, 48, 3, 32), (1, 16, 2, 64),
-                                       (2, 100, 2, 16), (1, 64, 1, 64)]):
-        args = wkv_inputs(torch, B, T, H, hd, 200 + i, dev)
-        y, st = wkv_cuda(*args)
-        yr, sr = ref.wkv_ref(*args)
-        close("wkv", y, yr, 2e-3, 1e-3)
-        close("wkv.state", st, sr, 2e-3, 1e-3)
-    r, k, v, _, u, _ = wkv_inputs(torch, 1, 32, 1, 16, 210, dev)
-    w = torch.full_like(r, 1e-4)                    # extreme decay
-    s0 = torch.zeros((1, 1, 16, 16), device=dev)
-    y, _ = wkv_cuda(r, k, v, w, u, s0)
-    require(bool(torch.isfinite(y).all()), "wkv: not finite at w=1e-4")
-    close("wkv", y, ref.wkv_ref(r, k, v, w, u, s0)[0], 1e-3, 1e-3)
+    wkv_checks(torch, dev, close)
     for i, (B, T, D) in enumerate([(2, 300, 64), (1, 128, 512),
                                    (3, 37, 100), (1, 1024, 256)]):
         args = rglru_inputs(torch, B, T, D, 300 + i, dev)
@@ -508,6 +507,42 @@ def lm_kernel_checks(torch, dev, close):
         hr, hTr = ref.rglru_ref(*args)
         close("rglru", h, hr, 1e-5, 1e-5)
         close("rglru", hT, hTr, 1e-5, 1e-5)
+
+
+def wkv_checks(torch, dev, close):
+    """The WKV kernel against its step-by-step plain version at atol 2e-3
+    / rtol 1e-3 on y and the final state: the sweep, T = 1 and T = 17 (a
+    chunk mostly past T), T = 3072 (192 chunks of drift), hd 128; an empty batch
+    launches nothing; w = 1e-4 (hd 16) and w = 1e-8 over 48 steps (hd 64)
+    finite and within 1e-3."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    for i, (B, T, H, hd) in enumerate([(2, 48, 3, 32), (1, 16, 2, 64),
+                                       (2, 100, 2, 16), (1, 64, 1, 64),
+                                       (2, 1, 2, 64), (2, 17, 3, 64),
+                                       (1, 3072, 2, 64), (2, 40, 2, 128)]):
+        args = wkv_inputs(torch, B, T, H, hd, 200 + i, dev)
+        y, st = wkv_cuda(*args)
+        yr, sr = ref.wkv_ref(*args)
+        close("wkv", y, yr, 2e-3, 1e-3)
+        close("wkv.state", st, sr, 2e-3, 1e-3)
+    args = wkv_inputs(torch, 0, 16, 2, 64, 208, dev)
+    before = LAUNCHES["wkv"]
+    y, st = wkv_cuda(*args)
+    require(tuple(y.shape) == (0, 16, 2, 64) and tuple(st.shape)
+            == (0, 2, 64, 64) and LAUNCHES["wkv"] == before,
+            "wkv: an empty batch gives empty outputs and no launch")
+    for i, (T, hd, wval) in enumerate([(32, 16, 1e-4), (48, 64, 1e-8)]):
+        r, k, v, _, u, _ = wkv_inputs(torch, 1, T, 1, hd, 210 + i, dev)
+        w = torch.full_like(r, wval)                # extreme decay
+        s0 = torch.zeros((1, 1, hd, hd), device=dev)
+        y, st = wkv_cuda(r, k, v, w, u, s0)
+        require(bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+                f"wkv: not finite at w={wval}")
+        yr, sr = ref.wkv_ref(r, k, v, w, u, s0)
+        close("wkv", y, yr, 1e-3, 1e-3)
+        close("wkv.state", st, sr, 1e-3, 1e-3)
 
 
 def phase_scheduler(torch, dev):
@@ -580,16 +615,37 @@ def check_round(torch, tr, solve, tag, rec) -> tuple:
             float(closed.abs().max()))
 
 
-def phase_main_path(torch, dev, prof_ok):
+def fl_world():
+    """The main path's world: the full-width paper CNN, synthetic 32x32x3
+    images of 10 classes, sorted and split over 64 devices, seed 0:
+    (model, train, test, parts)."""
     import numpy as np
     from repro_torch.configs.paper_cnn import PAPER_CNN_CIFAR10
-    from repro_torch.core import scheduling as S
     from repro_torch.data import (sort_and_partition, synthetic_image_dataset,
                                   train_test_split)
-    from repro_torch.fl import FederatedTrainer, FLConfig
-    from repro_torch.kernels import common
     from repro_torch.models.registry import build_model
+    ds = synthetic_image_dataset(num_classes=10, num_per_class=500,
+                                 image_size=32, channels=3, seed=0)
+    train, test = train_test_split(ds, seed=0)
+    parts = sort_and_partition(train.labels, 64, 1,
+                               np.random.default_rng(0))
+    return build_model(PAPER_CNN_CIFAR10), train, test, parts
+
+
+def fl_config(sched_name, ring_size=16):
+    """The main path's ``FLConfig`` for one scheduler."""
+    from repro_torch.fl import FLConfig
     from repro_torch.obs import ObsConfig
+    return FLConfig(num_devices=64, available_prob=0.3, batch_size=32,
+                    tau=1, scheduler=sched_name, scheduler_backend="torch",
+                    seed=0, eval_every=3,
+                    obs=ObsConfig(enabled=True, ring_size=ring_size))
+
+
+def phase_main_path(torch, dev, prof_ok):
+    from repro_torch.core import scheduling as S
+    from repro_torch.fl import FederatedTrainer
+    from repro_torch.kernels import common
 
     class CheckedTrainer(FederatedTrainer):
         """Keeps every (Problem, Schedule) the round solved, and the
@@ -606,26 +662,21 @@ def phase_main_path(torch, dev, prof_ok):
             return sigma
 
     t0 = time.perf_counter()
-    ds = synthetic_image_dataset(num_classes=10, num_per_class=500,
-                                 image_size=32, channels=3, seed=0)
-    train, test = train_test_split(ds, seed=0)
-    parts = sort_and_partition(train.labels, 64, 1,
-                               np.random.default_rng(0))
-    model = build_model(PAPER_CNN_CIFAR10)
+    model, train, test, parts = fl_world()
     log(f"main path data: {len(train)} train / {len(test)} test images "
         f"32x32x3, 64 devices ({time.perf_counter() - t0:.2f} s)")
+
+    def new_trainer(sched_name):
+        tr = CheckedTrainer(model, train, test, parts, fl_config(sched_name))
+        tr.solved, tr.sigmas = [], []
+        return tr
 
     trainers = {}
     sigma_err = []
     common.reset_launches()
     for sched_name, solve in (("fedcgd-fscd", S.fscd),
                               ("fedcgd-gs", S.greedy_scheduling)):
-        cfg = FLConfig(num_devices=64, available_prob=0.3, batch_size=32,
-                       tau=1, scheduler=sched_name,
-                       scheduler_backend="torch", seed=0, eval_every=3,
-                       obs=ObsConfig(enabled=True, ring_size=16))
-        tr = CheckedTrainer(model, train, test, parts, cfg)
-        tr.solved, tr.sigmas = [], []
+        tr = new_trainer(sched_name)
         for j in range(3):
             rec = tr.run_round(j)
             sigma_err.append(check_round(
@@ -654,6 +705,11 @@ def phase_main_path(torch, dev, prof_ok):
     for name in FL_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the main path")
+    tr, _ = trainers["fedcgd-fscd"]
+    twin = new_trainer("fedcgd-fscd")
+    for j in range(3):
+        twin.run_round(j)
+    check_same_run(torch, tr, twin, "fedcgd-fscd")
     if prof_ok:
         for sched_name, (tr, solve) in trainers.items():
             sigma_err.append(profile_round(torch, sched_name, tr, solve))
@@ -662,6 +718,33 @@ def phase_main_path(torch, dev, prof_ok):
         f"max abs err {abs_err:.3g}, max rel err {rel_err:.3g}, largest "
         f"sigma {top:.4g}")
     return launches, shapes
+
+
+def check_same_run(torch, a, b, tag):
+    """Two trainers on one seed after the same rounds: bitwise-equal
+    history (the round records), masks, iteration counts, Eq. 10 sigmas
+    and params."""
+    import numpy as np
+    require(a.history == b.history,
+            f"{tag}: two trainers on one seed differ in their history")
+    require(len(a.solved) == len(b.solved) and all(
+        np.array_equal(sa.mask, sb.mask) and sa.iterations == sb.iterations
+        for (_, sa), (_, sb) in zip(a.solved, b.solved)),
+        f"{tag}: two trainers on one seed differ in masks or iterations "
+        f"{[s.iterations for _, s in a.solved]} / "
+        f"{[s.iterations for _, s in b.solved]}")
+    require(all(torch.equal(x[3], y[3]) for x, y in zip(a.sigmas, b.sigmas)),
+            f"{tag}: two trainers on one seed differ in their sigmas")
+    differ = [k for k in a.params if not torch.equal(a.params[k],
+                                                     b.params[k])]
+    require(not differ, f"{tag}: two trainers on one seed differ in params "
+            f"{differ}")
+    log(f"{tag}: a second trainer on the same seed gave a bitwise-equal "
+        f"history, masks, iterations "
+        f"{[s.iterations for _, s in b.solved]}, sigmas and params after "
+        f"{len(b.history)} rounds (cudnn deterministic "
+        f"{torch.backends.cudnn.deterministic}, benchmark "
+        f"{torch.backends.cudnn.benchmark})")
 
 
 def profile_round(torch, sched_name, tr, solve) -> tuple:
@@ -1011,6 +1094,11 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
                 f"the visible pairs, {100 * row['bound_share']:.1f} % of the "
                 f"bound ({b_ms:.4f} ms over {t:.4f} ms); library "
                 f"{lib_ms:.4f} ms")
+        if name == "wkv":
+            t = row["device_ms"] or ms
+            row["bound_share"] = b_ms / t
+            log(f"wkv at {shp}: {100 * row['bound_share']:.1f} % of the bound "
+                f"({b_ms:.4f} ms over {t:.4f} ms)")
         rows.append(row)
     log("kernels: " + "; ".join(
         f"{r['name']} median {r['ms']:.4f} ms per call"

@@ -134,6 +134,12 @@ class FederatedTrainer:
         # f32 stays f32 on the card: cuDNN convolutions default to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # same seed, same bits on the card: left to itself, cuDNN runs the
+        # first layer's weight gradient in the vmapped (grouped)
+        # convolutions of the local update with an algorithm that sums
+        # by atomics, and rounds then differ from run to run (PERF.md)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
         self.model = model
         self.train = train
         self.test = test

@@ -133,6 +133,10 @@ ATTN_SHAPES = [(2, 3, 128, 128, 64), (1, 2, 256, 256, 64),
                (2, 2, 100, 100, 32), (1, 2, 64, 192, 64),
                (1, 1, 128, 128, 128), (1, 1, 257, 257, 64)]
 WKV_SHAPES = [(2, 48, 3, 32), (1, 16, 2, 64), (2, 100, 2, 16), (1, 64, 1, 64)]
+# T = 1 and T = 17 leave most of a chunk of 16 past T; T = 3072 is 192
+# chunks (the rwkv6-3b prompt) for drift across chunk boundaries; hd 128
+WKV_CARD_SHAPES = [(2, 1, 2, 64), (2, 17, 3, 64), (1, 3072, 2, 64),
+                   (2, 40, 2, 128)]
 RGLRU_SHAPES = [(2, 300, 64), (1, 128, 512), (3, 37, 100), (1, 1024, 256)]
 
 
@@ -233,7 +237,7 @@ def wkv_inputs(rng, B, T, H, hd, device):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,T,H,hd", WKV_SHAPES)
+@pytest.mark.parametrize("B,T,H,hd", WKV_SHAPES + WKV_CARD_SHAPES)
 def test_wkv_kernel_on_card(cuda, B, T, H, hd):
     from repro_torch.kernels.rwkv_scan import wkv_cuda
     args = wkv_inputs(np.random.default_rng(T + hd), B, T, H, hd, cuda)
@@ -256,6 +260,47 @@ def test_wkv_kernel_extreme_decay_on_card(cuda):
     assert bool(torch.isfinite(y).all())
     torch.testing.assert_close(y, tref.wkv_ref(r, k, v, w, u, s0)[0],
                                atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_wkv_kernel_decay_1e8_on_card(cuda):
+    """w = 1e-8 over 48 steps at hd 64: -log w sums to 425 (base 2) over
+    a chunk, so a split exponent would overflow; finite and within 1e-3."""
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    r, k, v, _, u, _ = wkv_inputs(np.random.default_rng(4), 1, 48, 1, 64,
+                                  cuda)
+    w = torch.full_like(r, 1e-8)
+    s0 = torch.zeros((1, 1, 64, 64), device=cuda)
+    y, s = wkv_cuda(r, k, v, w, u, s0)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(s).all())
+    yr, sr = tref.wkv_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, yr, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(s, sr, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H", [(0, 2), (2, 0)])
+def test_wkv_kernel_empty_batch_on_card(cuda, B, H):
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    args = wkv_inputs(np.random.default_rng(1), B, 16, H, 64, cuda)
+    before = LAUNCHES["wkv"]
+    y, s = wkv_cuda(*args)
+    assert y.shape == (B, 16, H, 64) and s.shape == (B, H, 64, 64)
+    assert LAUNCHES["wkv"] == before
+
+
+@pytest.mark.requires_cuda
+def test_wkv_kernel_refuses_bad_inputs_on_card(cuda):
+    from repro_torch.kernels.rwkv_scan import wkv_cuda
+    r, k, v, w, u, s = wkv_inputs(np.random.default_rng(2), 1, 16, 2, 64,
+                                  cuda)
+    flat = torch.zeros(r.numel() + 1, device=cuda)
+    shifted = flat[1:].view(r.shape)              # 4 bytes past alignment
+    with pytest.raises(ValueError, match="16-byte"):
+        wkv_cuda(shifted, k, v, w, u, s)
+    with pytest.raises(ValueError, match="f32"):
+        wkv_cuda(r.double(), k, v, w, u, s)
 
 
 @pytest.mark.requires_cuda

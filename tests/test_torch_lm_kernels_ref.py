@@ -244,6 +244,92 @@ def test_wkv_plain_extreme_decay():
     np.testing.assert_allclose(y.numpy(), yp, atol=1e-3, rtol=1e-3)
 
 
+def chunked_wkv(r, k, v, w, u, state, chunk=16, split=False):
+    """The design of ``csrc/wkv.cu`` in plain torch, in f32: chunks of 16
+    steps; per channel the base-2 log decays lc[t] = sum over u <= t of
+    log2(clip(w_u, 1e-8, 1)), with lc[t - 1] (0 at the chunk's first step)
+    as the decay in front of step t; each pair of A below the diagonal
+    under one exponent, or ``split`` into 2^lc[t-1] * 2^-lc[s] (the
+    factoring the kernel avoids); past T the rows are zero and the decay 1,
+    and no y is kept there.  Returns (y, final state)."""
+    B, T, H, hd = r.shape
+    pad = (-T) % chunk
+
+    def blocks(a):                  # [B, T, H, hd] -> [B, H, T + pad, hd]
+        return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad)).transpose(1, 2)
+    r, k, v = blocks(r), blocks(k), blocks(v)
+    lw = blocks(torch.log2(w.clamp(1e-8, 1.0)))
+    below = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool), -1)
+    S, ys = state.clone(), []
+    for c0 in range(0, T + pad, chunk):
+        rc, kc, vc = (x[:, :, c0:c0 + chunk] for x in (r, k, v))
+        lc = torch.cumsum(lw[:, :, c0:c0 + chunk], dim=2)
+        lp = torch.cat([torch.zeros_like(lc[:, :, :1]), lc[:, :, :-1]], 2)
+        lct = lc[:, :, -1:]
+        if split:
+            dec = torch.exp2(lp)[:, :, :, None] \
+                * torch.exp2(-lc)[:, :, None, :]
+        else:
+            dec = torch.exp2(torch.where(
+                below[..., None], lp[:, :, :, None] - lc[:, :, None, :],
+                -torch.inf))
+        A = (rc[:, :, :, None] * kc[:, :, None] * dec
+             * below[..., None]).sum(-1)
+        A = A + torch.diag_embed((rc * u[None, :, None] * kc).sum(-1))
+        ys.append((rc * torch.exp2(lp)) @ S + A @ vc)
+        S = torch.exp2(lct).transpose(-1, -2) * S \
+            + (kc * torch.exp2(lct - lc)).transpose(-1, -2) @ vc
+    y = torch.cat(ys, 2).transpose(1, 2)[:, :T] if ys else r[:, :0]
+    return y, S
+
+
+@pytest.mark.parametrize("B,T,H,hd", WKV_SHAPES + [(1, 1, 2, 64),
+                                                   (2, 17, 2, 64),
+                                                   (1, 40, 1, 128)])
+def test_chunked_wkv_design_matches_reference(B, T, H, hd):
+    """The kernel's chunked scan, from a state, against the step-by-step
+    plain version and the JAX model's ``wkv_chunked``; from zeros against
+    the interpret-mode Pallas kernel; all at the kernel's atol 2e-3 /
+    rtol 1e-3.  T = 1 and T = 17 leave most of a chunk past T."""
+    rng = np.random.default_rng(T + hd + 1)
+    r, k, v, w, u = wkv_inputs(rng, B, T, H, hd)
+    state = randn(rng, (B, H, hd, hd), scale=0.5)
+    y, s = chunked_wkv(*(t(a) for a in (r, k, v, w, u, state)))
+    assert y.shape == (B, T, H, hd)
+    yr, sr = tref.wkv_ref(*(t(a) for a in (r, k, v, w, u, state)))
+    for got, want in ((y, yr), (s, sr)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-3,
+                                   rtol=1e-3)
+    yj, sj = wkv_chunked(*(jnp.asarray(a) for a in (r, k, v, w, u, state)))
+    np.testing.assert_allclose(y.numpy(), yj, atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(s.numpy(), sj, atol=2e-3, rtol=1e-3)
+    zero = np.zeros_like(state)
+    y0, s0 = chunked_wkv(*(t(a) for a in (r, k, v, w, u, zero)))
+    yp, sp = wkv_pallas(*(jnp.asarray(a) for a in (r, k, v, w, u)),
+                        interpret=True)
+    np.testing.assert_allclose(y0.numpy(), yp, atol=2e-3, rtol=1e-3)
+    np.testing.assert_allclose(s0.numpy(), sp, atol=2e-3, rtol=1e-3)
+
+
+def test_chunked_wkv_design_extreme_decay():
+    """w = 1e-8 over 48 steps at hd 64: one exponent a pair stays finite
+    and within 1e-3 of the step-by-step version; 2^lc[t-1] * 2^-lc[s]
+    overflows (-lc reaches 425 in base 2 over a chunk)."""
+    rng = np.random.default_rng(8)
+    B, T, H, hd = 1, 48, 1, 64
+    r, k, v, _, u = wkv_inputs(rng, B, T, H, hd)
+    w = np.full((B, T, H, hd), 1e-8, np.float32)
+    state = np.zeros((B, H, hd, hd), np.float32)
+    args = [t(a) for a in (r, k, v, w, u, state)]
+    y, s = chunked_wkv(*args)
+    assert np.isfinite(y.numpy()).all() and np.isfinite(s.numpy()).all()
+    yr, sr = tref.wkv_ref(*args)
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(s.numpy(), sr.numpy(), atol=1e-3, rtol=1e-3)
+    y_split, _ = chunked_wkv(*args, split=True)
+    assert not np.isfinite(y_split.numpy()).all()
+
+
 @pytest.mark.parametrize("B,T,D", RGLRU_SHAPES)
 def test_rglru_plain_matches_reference(B, T, D):
     rng = np.random.default_rng(T + D)

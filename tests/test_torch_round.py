@@ -5,7 +5,8 @@ The reference runs ``scheduler_backend="numpy"`` (its jax backend does
 not import on this toolchain); the port runs ``"numpy"`` and
 ``"torch"`` (the batched engine, CPU route).  Both start from the same
 params (converted), so host draws are bitwise equal and device float
-math agrees to f32 tolerance."""
+math agrees to f32 tolerance.  The determinism cases hold the port to
+itself (on the CPU, and on the card where there is one)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -207,3 +208,67 @@ def test_cli_runs_on_cpu(capsys):
           "--devices", "6", "--classes", "3"])
     out = capsys.readouterr().out
     assert "== fedcgd-fscd on cpu ==" in out
+
+
+@pytest.fixture(scope="module")
+def port_world():
+    """The micro world's data, from the port's own data helpers."""
+    from repro_torch.data import (sort_and_partition, synthetic_image_dataset,
+                                  train_test_split)
+    ds = synthetic_image_dataset(num_classes=2, num_per_class=40,
+                                 image_size=8, seed=0)
+    train, test = train_test_split(ds, seed=0)
+    parts = sort_and_partition(train.labels, 8, 1,
+                               np.random.default_rng(0))
+    return train, test, parts
+
+
+@pytest.fixture(params=["cpu", pytest.param(
+    "cuda", marks=pytest.mark.requires_cuda)])
+def fl_device(request):
+    if request.param == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return request.param
+
+
+class RecordingTrainer(FederatedTrainer):
+    """Keeps every round's mask and iteration count, and the per-device
+    losses and Eq. 10 sigmas of its round core."""
+
+    def _schedule(self, prob, *a):
+        sched = super()._schedule(prob, *a)
+        self.decisions.append((sched.mask.copy(), sched.iterations))
+        return sched
+
+    def _post_core(self, prep, dev_losses, sigma_v):
+        self.core_out.append((dev_losses.copy(), sigma_v.copy()))
+        super()._post_core(prep, dev_losses, sigma_v)
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_same_seed_gives_bitwise_equal_rounds(port_world, fl_device,
+                                              dropout):
+    """Two trainers on one seed: bitwise-equal history, masks, iteration
+    counts, losses, sigmas and params after 3 rounds (the reference's
+    ``test_fault_determinism_across_runs`` contract).  With dropout the
+    keep masks come from the trainer's generator on the device."""
+    train, test, parts = port_world
+    model = build_model(CNNConfig(**dict(MICRO, dropout=dropout)))
+    runs = []
+    for _ in range(2):
+        tr = RecordingTrainer(model, train, test, parts, FLConfig(
+            scheduler_backend="torch", device=fl_device, **common_cfg()))
+        tr.decisions, tr.core_out = [], []
+        runs.append((tr.run(3), tr.decisions, tr.core_out, tr.params))
+    (h1, d1, c1, p1), (h2, d2, c2, p2) = runs
+    assert len(h1) == len(d1) == len(c1) == 3
+    assert h1 == h2
+    for (m1, i1), (m2, i2) in zip(d1, d2):
+        np.testing.assert_array_equal(m1, m2)
+        assert i1 == i2
+    for (l1, s1), (l2, s2) in zip(c1, c2):
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(s1, s2)
+    assert p1.keys() == p2.keys()
+    for k in p1:
+        assert torch.equal(p1[k], p2[k]), k
