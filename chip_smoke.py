@@ -9,7 +9,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      five CUDA C++ sources (``wemd``, ``persample_gradnorm``,
      ``flash_attention``, ``wkv``, ``rglru_scan``) with one nvcc each,
      all at once; prints ptxas's registers, spills and warnings for the
-     kernels of ``wemd.cu``, ``flash_attention.cu`` and ``wkv.cu``;
+     kernels of every source;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5 on f32 and on f64 inputs, the f64
@@ -18,7 +18,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      atol 1e-3 / rtol 8e-3, tighter than the sweep's 3e-2; wkv atol 2e-3
      / rtol 1e-3 on y and state, with T = 1, T = 17, T = 3072, hd 128
      and an empty batch, and 1e-3 in the w=1e-4 and w=1e-8 cases; rglru
-     1e-5);
+     atol 1e-5 + rtol 1e-5 on h and h_T at the sweep, T = 1, T = 257,
+     T = 3072 and D = 37, and at a = 0, 1 and 0.9999 (unit b over 100
+     steps, b = sqrt(1 - a^2) x over 3072), h_T the last step's h and a
+     second call bitwise equal; persample_gradnorm on int64 and int32
+     labels, bitwise equal, at B = 33 / d = 37, C = 100 and h in column
+     tiles, and V = 0 launching nothing);
   3. solves 50 seeded random P1 problems with the torch scheduler on the
      card and requires the numpy solvers' masks and iteration counts;
   4. drives the FL main path: ``FederatedTrainer`` on the full-width
@@ -58,9 +63,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      device time from a ``torch.profiler`` trace; for the WEMD kernels
      also ``path_ms``, the call as the scheduler makes it (``ops.wemd_*``
      on f64 inputs, bitwise equal to ``ms``'s call on the cast inputs);
-     for attention also the rate over the visible pairs (``tflops``);
-     for attention and wkv the share of the bound (``bound_share``, bound
-     over device time).
+     for ``persample_gradnorm`` also ``path_ms``, the round's call
+     (``ops.persample_gradnorm`` on int64 labels), which must run one
+     device op (no cast kernel in front of the kernel); for attention
+     also the rate over the visible pairs (``tflops``); for every kernel
+     the share of the bound (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -93,6 +100,9 @@ TPU_KERNELS = {
     "rglru": "src/repro/kernels/rglru_scan.py:50",
 }
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
+# the kernels' symbols in a profiler trace
+PORT_KERNEL_SYMBOLS = ("wemd_", "psg_kernel", "flash_", "wkv_chunked",
+                       "rglru_scan")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("cuda", CSRC + "wemd.cu"),
@@ -195,11 +205,17 @@ def wkv_inputs(torch, B, T, H, hd, seed, device):
             randn(B, H, hd, hd, scale=0.5))
 
 
-def rglru_inputs(torch, B, T, D, seed, device):
+def rglru_inputs(torch, B, T, D, seed, device, a_val=None, scaled=False):
+    """a in [0.8, 0.999], or ``a_val`` everywhere; unit b, or b =
+    sqrt(1 - a^2) x as RG-LRU forms it; h0 ~ N(0, 1)."""
     g = torch.Generator(device=device).manual_seed(seed)
     a = torch.rand((B, T, D), generator=g, device=device) * 0.199 + 0.8
-    return (a, torch.randn((B, T, D), generator=g, device=device),
-            torch.randn((B, D), generator=g, device=device))
+    if a_val is not None:
+        a = torch.full_like(a, a_val)
+    b = torch.randn((B, T, D), generator=g, device=device)
+    if scaled:
+        b = torch.sqrt(1 - a * a) * b
+    return a, b, torch.randn((B, D), generator=g, device=device)
 
 
 def window_mask(torch, S, T, causal, window, device):
@@ -264,9 +280,9 @@ def bound(name, shapes, itemsize=4):
         (B, V, C), = shapes
         nbytes = 4 * (3 * B * C + B * V * C + B + B * V * V)
         ops = 7 * B * V * V * C
-    else:
+    else:                           # labels int64, as the round's
         (V, B, d), (_, _, C) = shapes
-        nbytes = 4 * (V * B * d + V * B * C + V * B + V * B + V)
+        nbytes = 4 * (V * B * d + V * B * C + V * B + V) + 8 * V * B
         ops = V * (8 * B * C + 2 * B * d + 2 * B * d * C + 2 * d * C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
@@ -371,8 +387,9 @@ def phase_build(torch, dev):
             f"{route} hd{hd} {lib.flash_attention_smem_bytes(hd, dt)} B"
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
-    log("ptxas, wkv.cu: "
-        + ptxas_summary(common.BUILD_LOGS.get("wkv.cu", "")))
+    for src in ("wkv.cu", "rglru_scan.cu", "persample_gradnorm.cu"):
+        log(f"ptxas, {src}: "
+            + ptxas_summary(common.BUILD_LOGS.get(src, "")))
 
 
 def ptxas_summary(text: str) -> str:
@@ -388,6 +405,8 @@ def ptxas_summary(text: str) -> str:
             m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
             w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
             c = re.search(r"wkv_chunkedILi(\d+)E", line)
+            r = re.search(r"rglru_scanILb([01])E", line)
+            p = re.search(r"psg_kernelI([xi])Lb([01])E", line)
             if m:
                 name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
                         f"hd{m[2]}")
@@ -395,6 +414,11 @@ def ptxas_summary(text: str) -> str:
                 name = f"{w[1]} {'f64' if w[2] == 'd' else 'f32'} inputs"
             elif c:
                 name = f"wkv hd{c[1]}"
+            elif r:
+                name = f"rglru {'16-byte' if r[1] == '1' else '4-byte'} rows"
+            elif p:
+                name = (f"psg int{64 if p[1] == 'x' else 32} labels, "
+                        f"{'16-byte' if p[2] == '1' else '4-byte'} h")
             else:
                 name = line.split("'")[1]
         elif "spill stores" in line:
@@ -409,7 +433,7 @@ def ptxas_summary(text: str) -> str:
 def phase_kernel_checks(torch, dev):
     from repro_torch.kernels import ref
     from repro_torch.kernels.persample_gradnorm import (
-        persample_gradnorm_cuda, persample_gradnorm_cuda_batched)
+        persample_gradnorm_cuda)
     worst = {}
 
     def close(name, got, want, atol, rtol):
@@ -428,15 +452,43 @@ def phase_kernel_checks(torch, dev):
         sr, gr = ref.persample_gradnorm_ref(h[0], logits[0], labels[0])
         close("persample_gradnorm", s, sr, 1e-3, 1e-3)
         close("persample_gradnorm.gi_sq", gi, gr, 1e-2, 1e-3)
-    for i, V in enumerate((19, 64)):                 # the round's batched call
-        h, logits, labels = psg_inputs(torch, V, 32, 120, 10, 70 + i, dev)
-        s, gi = persample_gradnorm_cuda_batched(h, logits, labels)
-        sr, gr = ref.persample_gradnorm_ref(h, logits, labels)
-        close("persample_gradnorm", s, sr, 1e-3, 1e-3)
-        close("persample_gradnorm.gi_sq", gi, gr, 1e-2, 1e-3)
+    psg_checks(torch, dev, close)
     lm_kernel_checks(torch, dev, close)
     log("kernels vs plain: " + ", ".join(
         f"{k} max abs err {v:.3g}" for k, v in worst.items()))
+
+
+def psg_checks(torch, dev, close):
+    """The batched Eq. 10 kernel at the round's shapes (V = 19, 23, 64),
+    B off 32 with d off 4, C = 100 and h in column tiles (100, 512, 100):
+    sigma within 1e-3, gi_sq within atol 1e-2; int64 labels (the
+    round's) and int32 labels give one bit pattern, and so does a second
+    call; V = 0 launches nothing."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched as kern)
+    for i, (V, B, d, C) in enumerate([(19, 32, 120, 10), (23, 32, 120, 10),
+                                      (64, 32, 120, 10), (3, 33, 37, 10),
+                                      (2, 32, 120, 100), (2, 100, 512, 100)]):
+        h, logits, labels = psg_inputs(torch, V, B, d, C, 70 + i, dev)
+        s, gi = kern(h, logits, labels)
+        s32, gi32 = kern(h, logits, labels.to(torch.int32))
+        again = kern(h, logits, labels)
+        sr, gr = ref.persample_gradnorm_ref(h, logits, labels)
+        close("persample_gradnorm", s, sr, 1e-3, 1e-3)
+        close("persample_gradnorm.gi_sq", gi, gr, 1e-2, 1e-3)
+        require(labels.dtype == torch.int64 and torch.equal(s, s32)
+                and torch.equal(gi, gi32) and torch.equal(s, again[0])
+                and torch.equal(gi, again[1]),
+                f"persample_gradnorm at {(V, B, d, C)}: int64 and int32 "
+                f"labels, or two calls, differ")
+    h, logits, labels = psg_inputs(torch, 0, 32, 120, 10, 79, dev)
+    before = LAUNCHES["persample_gradnorm"]
+    s, gi = kern(h, logits, labels)
+    require(tuple(s.shape) == (0,) and tuple(gi.shape) == (0, 32)
+            and LAUNCHES["persample_gradnorm"] == before,
+            "persample_gradnorm: V = 0 gives empty outputs and no launch")
 
 
 def wemd_checks(torch, dev, close):
@@ -500,13 +552,35 @@ def lm_kernel_checks(torch, dev, close):
             close("attention.bf16", out.float(), want.float(),
                   *BF16_ATTN_TOL)
     wkv_checks(torch, dev, close)
-    for i, (B, T, D) in enumerate([(2, 300, 64), (1, 128, 512),
-                                   (3, 37, 100), (1, 1024, 256)]):
-        args = rglru_inputs(torch, B, T, D, 300 + i, dev)
+    rglru_checks(torch, dev, close)
+
+
+def rglru_checks(torch, dev, close):
+    """The RG-LRU scan against its step-by-step plain version at atol
+    1e-5 + rtol 1e-5 on h and h_T: the sweep, T = 1, T = 257 (off the
+    run and the segment), D = 37 (the kernel's 4-byte loads), T = 3072
+    (12 segments of carry); a = 0, 1 and 0.9999 with unit b over 100
+    steps and with b = sqrt(1 - a^2) x (RG-LRU's) over 3072; h_T is the
+    last step's h, and a second call gives the same bits."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    cases = [(B, T, D, None, False) for B, T, D in [
+        (2, 300, 64), (1, 128, 512), (3, 37, 100), (1, 1024, 256),
+        (2, 1, 64), (2, 257, 37), (3, 100, 37), (1, 3072, 256)]]
+    cases += [(2, T, D, a_val, scaled) for a_val in (0.0, 1.0, 0.9999)
+              for T, D, scaled in [(100, 64, False), (100, 37, False),
+                                   (3072, 64, True)]]
+    for i, (B, T, D, a_val, scaled) in enumerate(cases):
+        args = rglru_inputs(torch, B, T, D, 300 + i, dev, a_val, scaled)
         h, hT = rglru_cuda(*args)
         hr, hTr = ref.rglru_ref(*args)
         close("rglru", h, hr, 1e-5, 1e-5)
         close("rglru", hT, hTr, 1e-5, 1e-5)
+        h2, hT2 = rglru_cuda(*args)
+        require(torch.equal(hT, h[:, -1]) and torch.equal(h, h2)
+                and torch.equal(hT, hT2),
+                f"rglru at {(B, T, D, a_val)}: h_T is not the last h, or "
+                f"two calls differ")
 
 
 def wkv_checks(torch, dev, close):
@@ -768,8 +842,9 @@ def profile_round(torch, sched_name, tr, solve) -> tuple:
 def profiled(torch, tag, fn, top=6):
     """Run ``fn`` once under ``torch.profiler`` and log the device's busy
     share of its wall time (summed kernel and copy time over the host
-    clock, the profiler's own cost included, so a lower bound) and the
-    kernels that took longest.  Returns what ``fn`` returns."""
+    clock, the profiler's own cost included, so a lower bound), the
+    kernels that took longest and the port's kernels' totals.  Returns
+    what ``fn`` returns."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -786,6 +861,10 @@ def profiled(torch, tag, fn, top=6):
         f"ops; longest: " + "; ".join(
             f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms "
             f"x{e.count}" for e in evs[:top]))
+    port = [e for e in evs if any(k in e.key for k in PORT_KERNEL_SYMBOLS)]
+    log(f"{tag}: the port's kernels: " + ("; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        for e in port) or "none"))
     return out
 
 
@@ -988,6 +1067,7 @@ def timing_case(torch, dev, name, shp):
     if name == "persample_gradnorm":
         (V, B, d), (_, _, C) = shp
         args = psg_inputs(torch, V, B, d, C, 90, dev)
+        require(args[2].dtype == torch.int64, "the round's labels are int64")
         return (lambda: persample_gradnorm_cuda_batched(*args)[0],
                 lambda: ref.persample_gradnorm_ref(*args)[0], None,
                 (SIGMA_ATOL, SIGMA_RTOL), 4)
@@ -1020,6 +1100,37 @@ def wemd_path(torch, dev, name, shp):
     require(torch.equal(got, want), f"{name}: ops on f64 inputs is not the "
             f"kernel on the f32-cast inputs at {shp}")
     return lambda: op(*a64)
+
+
+def psg_path(torch, dev, shp, prof_ok):
+    """The call as the round makes it: ``ops.persample_gradnorm`` on f32
+    features and logits and int64 labels at shapes ``shp``, bitwise equal
+    to the kernel's call and, where the profiler works, running no device
+    op but the kernel (no cast kernel in front of it).  Returns the
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    (V, B, d), (_, _, C) = shp
+    args = psg_inputs(torch, V, B, d, C, 90, dev)
+    got, want = ops.persample_gradnorm(*args), \
+        persample_gradnorm_cuda_batched(*args)
+    torch.cuda.synchronize()
+    require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+            f"persample_gradnorm: ops is not the kernel's call at {shp}")
+    if prof_ok:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                ops.persample_gradnorm(*args)
+            torch.cuda.synchronize()
+        ran = {e.key: e.count for e in prof.key_averages()
+               if e.self_device_time_total > 0}
+        require(ran and all("psg_kernel" in k for k in ran),
+                f"persample_gradnorm: the round's call ran {ran}, not the "
+                f"kernel alone")
+    return lambda: ops.persample_gradnorm(*args)
 
 
 def attention_f32_check(torch, dev, shp):
@@ -1082,23 +1193,21 @@ def phase_timing(torch, dev, launches, shapes, prof_ok):
                "shape": [list(s) for s in shp]}
         if name in ("wemd_add", "wemd_swap"):
             row["path_ms"] = time_ms(torch, wemd_path(torch, dev, name, shp))
+        if name == "persample_gradnorm":
+            row["path_ms"] = time_ms(torch, psg_path(torch, dev, shp,
+                                                     prof_ok))
+        t = row["device_ms"] or ms
+        row["bound_share"] = b_ms / t
         if name == "attention":
-            # the rate over the visible pairs (4 hd FLOPs each) and the
-            # share of the bound, both from the device time (else ms)
-            t = row["device_ms"] or ms
+            # the rate over the visible pairs (4 hd FLOPs each), from the
+            # device time (else ms)
             (B, H, S, hd), (_, _, T, _), (causal, window) = shp
             flops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
             row["tflops"] = flops / t / 1e9
-            row["bound_share"] = b_ms / t
             log(f"attention bf16 at {shp}: {row['tflops']:.1f} TFLOP/s over "
-                f"the visible pairs, {100 * row['bound_share']:.1f} % of the "
-                f"bound ({b_ms:.4f} ms over {t:.4f} ms); library "
-                f"{lib_ms:.4f} ms")
-        if name == "wkv":
-            t = row["device_ms"] or ms
-            row["bound_share"] = b_ms / t
-            log(f"wkv at {shp}: {100 * row['bound_share']:.1f} % of the bound "
-                f"({b_ms:.4f} ms over {t:.4f} ms)")
+                f"the visible pairs; library {lib_ms:.4f} ms")
+        log(f"{name} at {shp}: {100 * row['bound_share']:.1f} % of the bound "
+            f"({b_ms:.6f} ms over {t:.6f} ms)")
         rows.append(row)
     log("kernels: " + "; ".join(
         f"{r['name']} median {r['ms']:.4f} ms per call"

@@ -9,12 +9,14 @@ takes bf16 as it comes, as the Pallas kernel does, and sums in f32 (its
 kernel's bf16 route multiplies on the tensor cores, to one bf16 step of
 the f32 function).  The WEMD kernels take the scheduler's f64 state as it
 comes and round it to f32 as they load it, the rounding of the cast, so
-no cast kernel is launched in front of them.
+no cast kernel is launched in front of them; the Eq. 10 kernel reads
+int64 labels (the round's) as they come.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import persample_gradnorm as psg
 from repro_torch.kernels import ref
 from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
 
@@ -28,7 +30,10 @@ def _route(x: torch.Tensor) -> str:
 
 
 def _f32(*xs):
-    return [x.to(torch.float32).contiguous() for x in xs]
+    """xs as contiguous f32: each x itself (no kernel, the least host
+    work) where it already is one."""
+    return [x if x.dtype == torch.float32 and x.is_contiguous()
+            else x.to(torch.float32).contiguous() for x in xs]
 
 
 def _wemd_cuda_args(xs):
@@ -93,10 +98,12 @@ def persample_gradnorm(features, logits, labels):
     """Eq. 10 for a softmax-CE head: features [..., B, d] with at most
     one leading device axis -> (sigma [...], gi_sq [..., B])."""
     if _route(features) == "cuda":
-        from repro_torch.kernels import persample_gradnorm as P
-        if features.dim() == 2:
-            return P.persample_gradnorm_cuda(features, logits, labels)
-        return P.persample_gradnorm_cuda_batched(features, logits, labels)
+        h, lg = _f32(features, logits)
+        if labels.dtype not in (torch.int64, torch.int32):
+            labels = labels.long()
+        fn = (psg.persample_gradnorm_cuda if h.dim() == 2
+              else psg.persample_gradnorm_cuda_batched)
+        return fn(h, lg, labels.contiguous())
     return ref.persample_gradnorm_ref(features, logits, labels)
 
 

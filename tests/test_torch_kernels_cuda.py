@@ -129,6 +129,53 @@ def test_persample_gradnorm_kernel_on_card(cuda, B, d, C):
     torch.testing.assert_close(gb[0], gi)
 
 
+# the round's shape at V = 23; B off 32 with d off 4 (4-byte copies); 100
+# classes (7 blocks of 16); (100, 512, 100): h in two column tiles
+PSG_BATCHED_CASES = [(23, 32, 120, 10), (3, 33, 37, 10), (2, 32, 120, 100),
+                     (2, 100, 512, 100)]
+
+
+def psg_batched(V, B, d, C, seed, device):
+    rng = np.random.default_rng(seed)
+    return to_torch([rng.normal(size=(V, B, d)).astype(np.float32),
+                     rng.normal(size=(V, B, C)).astype(np.float32),
+                     rng.integers(0, C, (V, B))], device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("V,B,d,C", PSG_BATCHED_CASES)
+def test_persample_gradnorm_kernel_labels_on_card(cuda, V, B, d, C):
+    """int64 labels (the round's) and int32 labels read as they come give
+    one bit pattern, within sigma 1e-3 and gi_sq atol 1e-2 of the plain
+    version; a second call gives the same bits."""
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    h, logits, labels = psg_batched(V, B, d, C, V + B + d + C, cuda)
+    assert labels.dtype == torch.int64
+    s64, g64 = persample_gradnorm_cuda_batched(h, logits, labels)
+    s32, g32 = persample_gradnorm_cuda_batched(h, logits,
+                                               labels.to(torch.int32))
+    again = persample_gradnorm_cuda_batched(h, logits, labels)
+    torch.cuda.synchronize()
+    assert torch.equal(s64, s32) and torch.equal(g64, g32)
+    assert torch.equal(s64, again[0]) and torch.equal(g64, again[1])
+    sr, gr = tref.persample_gradnorm_ref(h, logits, labels)
+    torch.testing.assert_close(s64, sr, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(g64, gr, atol=1e-2, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+def test_persample_gradnorm_kernel_no_device_on_card(cuda):
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    h, logits, labels = psg_batched(0, 32, 120, 10, 1, cuda)
+    before = LAUNCHES["persample_gradnorm"]
+    sigma, gi_sq = persample_gradnorm_cuda_batched(h, logits, labels)
+    assert sigma.shape == (0,) and gi_sq.shape == (0, 32)
+    assert LAUNCHES["persample_gradnorm"] == before
+
+
 ATTN_SHAPES = [(2, 3, 128, 128, 64), (1, 2, 256, 256, 64),
                (2, 2, 100, 100, 32), (1, 2, 64, 192, 64),
                (1, 1, 128, 128, 128), (1, 1, 257, 257, 64)]
@@ -138,6 +185,11 @@ WKV_SHAPES = [(2, 48, 3, 32), (1, 16, 2, 64), (2, 100, 2, 16), (1, 64, 1, 64)]
 WKV_CARD_SHAPES = [(2, 1, 2, 64), (2, 17, 3, 64), (1, 3072, 2, 64),
                    (2, 40, 2, 128)]
 RGLRU_SHAPES = [(2, 300, 64), (1, 128, 512), (3, 37, 100), (1, 1024, 256)]
+# T = 1; T off the run of 8 and the segment of 256 steps (257, 100); D = 37
+# (off the 4-channel groups: the kernel's scalar loads); T = 3072, the
+# prompt: 12 segments of carry
+RGLRU_CARD_SHAPES = [(2, 1, 64), (2, 257, 37), (3, 100, 37),
+                     (1, 3072, 256)]
 
 
 def randn(rng, shape, scale=1.0):
@@ -303,15 +355,58 @@ def test_wkv_kernel_refuses_bad_inputs_on_card(cuda):
         wkv_cuda(r.double(), k, v, w, u, s)
 
 
+def rglru_inputs(rng, B, T, D, device, a_val=None, scaled=False):
+    """a in [0.8, 0.999], or ``a_val`` everywhere; unit b, or b =
+    sqrt(1 - a^2) x as RG-LRU forms it; h0 ~ N(0, 1)."""
+    a = (rng.uniform(0.8, 0.999, (B, T, D)) if a_val is None
+         else np.full((B, T, D), a_val)).astype(np.float32)
+    b = randn(rng, (B, T, D))
+    if scaled:
+        b = (np.sqrt(np.float32(1) - a * a) * b).astype(np.float32)
+    return to_torch([a, b, randn(rng, (B, D))], device)
+
+
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,T,D", RGLRU_SHAPES)
+@pytest.mark.parametrize("B,T,D", RGLRU_SHAPES + RGLRU_CARD_SHAPES)
 def test_rglru_kernel_on_card(cuda, B, T, D):
+    """Within 1e-5 of the step-by-step plain version, h and h_T (h_T is
+    the last step's h, bit for bit), from a non-zero h0."""
     from repro_torch.kernels.rglru_scan import rglru_cuda
-    rng = np.random.default_rng(T + D)
-    a, b, h0 = to_torch([rng.uniform(0.8, 0.999, (B, T, D)).astype(
-        np.float32), randn(rng, (B, T, D)), randn(rng, (B, D))], cuda)
+    a, b, h0 = rglru_inputs(np.random.default_rng(T + D), B, T, D, cuda)
     y, hT = rglru_cuda(a, b, h0)
     torch.cuda.synchronize()
     yr, hr = tref.rglru_ref(a, b, h0)
     torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(hT, hr, atol=1e-5, rtol=1e-5)
+    assert torch.equal(hT, y[:, -1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("a_val", [0.0, 1.0, 0.9999])
+@pytest.mark.parametrize("T,D,scaled", [(100, 64, False), (100, 37, False),
+                                        (3072, 64, True)])
+def test_rglru_kernel_extreme_a_on_card(cuda, a_val, T, D, scaled):
+    """a = 0, 1 and 0.9999 at 1e-5: unit b over 100 steps, and b =
+    sqrt(1 - a^2) x over 3072 (tests/test_torch_lm_kernels_ref.py says
+    why unit b is not run over 3072 steps at a = 1)."""
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    a, b, h0 = rglru_inputs(np.random.default_rng(17), 2, T, D, cuda, a_val,
+                            scaled)
+    y, hT = rglru_cuda(a, b, h0)
+    torch.cuda.synchronize()
+    yr, hr = tref.rglru_ref(a, b, h0)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hT, hr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,D", [(4, 3072, 2560), (2, 257, 37)])
+def test_rglru_kernel_repeatable_on_card(cuda, B, T, D):
+    """Two calls on one input give one bit pattern (no atomics, a fixed
+    order of sums), at the recurrentgemma-2b prefill shape too."""
+    from repro_torch.kernels.rglru_scan import rglru_cuda
+    a, b, h0 = rglru_inputs(np.random.default_rng(5), B, T, D, cuda)
+    y1, h1 = rglru_cuda(a, b, h0)
+    y2, h2 = rglru_cuda(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)

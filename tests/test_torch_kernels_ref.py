@@ -109,3 +109,140 @@ def test_persample_gradnorm_batched_plain_is_per_device():
         s1, g1 = ops.persample_gradnorm(*to_torch(args))
         torch.testing.assert_close(s[v], s1, atol=1e-6, rtol=1e-5)
         torch.testing.assert_close(gi[v], g1, atol=1e-5, rtol=1e-5)
+
+
+def psg_tiled(h, logits, labels, kt):
+    """The sums of ``csrc/persample_gradnorm.cu`` in plain torch, one
+    device: E once, then ||h_i||^2 and the columns of H^T E a feature tile
+    of ``kt`` columns at a time."""
+    B, d = h.shape
+    p = torch.softmax(logits, dim=-1)
+    e = p - torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    hh, gb = torch.zeros(B), torch.zeros(())
+    for k0 in range(0, d, kt):
+        tile = h[:, k0:k0 + kt]
+        hh = hh + (tile * tile).sum(-1)
+        gb = gb + ((tile.T @ e / B) ** 2).sum()
+    gi_sq = hh * (e * e).sum(-1)
+    return torch.sqrt(torch.clamp(gi_sq.mean() - gb, min=0.0)), gi_sq
+
+
+@pytest.mark.parametrize("B,d,C", PSG_SHAPES + [(32, 120, 10), (33, 37, 10),
+                                                (32, 120, 100)])
+def test_persample_gradnorm_plan_tiles_d(B, d, C):
+    """The kernel's plan: all of h in shared memory at the round's shape,
+    column tiles (multiples of 4) where B * d does not fit; with those
+    tiles the kernel's sums match the interpret-mode Pallas kernel at
+    test_kernels.py's tolerances."""
+    from repro_torch.kernels.persample_gradnorm import (MAX_SHARED_BYTES,
+                                                         _plan)
+    kt, smem = _plan(B, d, C)
+    assert smem <= MAX_SHARED_BYTES
+    assert kt == d or (kt % 4 == 0 and 4 <= kt < d)
+    if (B, d, C) == (32, 120, 10):
+        assert kt == d and smem < 48 * 1024
+    if (B, d, C) == (100, 512, 100):
+        assert kt < d
+    args = psg_inputs(B, d, C, seed=B + d + C)
+    s, gi = psg_tiled(*to_torch(args), kt)
+    sp, gp = persample_gradnorm_pallas(*to_jax(args), interpret=True)
+    np.testing.assert_allclose(float(s), float(sp), atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(gi.numpy(), gp, atol=1e-2, rtol=1e-3)
+
+
+def test_persample_gradnorm_plan_refuses_what_does_not_fit():
+    from repro_torch.kernels.persample_gradnorm import _plan
+    with pytest.raises(ValueError, match="shared memory"):
+        _plan(3000, 120, 10)             # logits and E alone: 240 KB
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that calls itself a CUDA tensor on device ``card``, so
+    that a wrapper's validation runs here; it cannot launch."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+    def get_device(self):
+        return self.card
+
+
+def on_card(x, card=0):
+    y = x.as_subclass(OnCard)
+    y.card = card
+    return y
+
+
+def test_persample_gradnorm_wrapper_refuses_bad_inputs_before_launch(
+        monkeypatch):
+    """CPU, mixed-device, wrong-dtype, non-contiguous, misshapen and empty
+    inputs raise ValueError before the kernel is built or launched; f32
+    features and logits with int64 or int32 labels reach the launch; no
+    device (V = 0) launches nothing."""
+    from repro_torch.kernels import persample_gradnorm as K
+    from repro_torch.kernels.common import LAUNCHES
+
+    def no_launch():
+        raise AssertionError("the kernel was reached")
+    monkeypatch.setattr(K, "_launcher", no_launch)
+    h, lg, lb = (torch.as_tensor(np.stack([x, x]))
+                 for x in psg_inputs(32, 120, 10, seed=1))
+    lb64 = lb.long()
+    before = LAUNCHES["persample_gradnorm"]
+    bad = {"CUDA": (h, lg, lb64),
+           "CUDA tensors only": (on_card(h), on_card(lg), lb64),
+           "one device": (on_card(h), on_card(lg), on_card(lb64, 1)),
+           "f32 features": (on_card(h.double()), on_card(lg),
+                            on_card(lb64)),
+           "int64 labels": (on_card(h), on_card(lg),
+                            on_card(lb.to(torch.int16))),
+           "contiguous": (on_card(h), on_card(lg),
+                          on_card(lb64.T.contiguous().T)),
+           "shape mismatch": (on_card(h), on_card(lg[:1].contiguous()),
+                              on_card(lb64)),
+           "at least one": (on_card(h[:, :0].contiguous()),
+                            on_card(lg[:, :0].contiguous()),
+                            on_card(lb64[:, :0].contiguous()))}
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=match):
+            K.persample_gradnorm_cuda_batched(*args)
+    for labels in (lb64, lb):
+        with pytest.raises(AssertionError, match="reached"):
+            K.persample_gradnorm_cuda_batched(on_card(h), on_card(lg),
+                                              on_card(labels))
+    sigma, gi_sq = K.persample_gradnorm_cuda_batched(
+        *(on_card(x[:0].contiguous()) for x in (h, lg, lb64)))
+    assert sigma.shape == (0,) and gi_sq.shape == (0, 32)
+    assert LAUNCHES["persample_gradnorm"] == before
+
+
+def test_rglru_wrapper_refuses_bad_inputs_before_launch(monkeypatch):
+    """CPU, mixed-device, wrong-dtype, non-contiguous and misshapen inputs
+    raise ValueError before the kernel is built or launched; an empty
+    batch launches nothing."""
+    from repro_torch.kernels import rglru_scan as K
+    from repro_torch.kernels.common import LAUNCHES
+
+    def no_launch():
+        raise AssertionError("the kernel was reached")
+    monkeypatch.setattr(K, "_launcher", no_launch)
+    a, h0 = torch.zeros(2, 9, 37), torch.zeros(2, 37)
+    before = LAUNCHES["rglru"]
+    bad = {"CUDA": (a, a, h0),
+           "CUDA tensors only": (on_card(a), on_card(a), h0),
+           "one device": (on_card(a), on_card(a), on_card(h0, 1)),
+           "f32": (on_card(a.double()), on_card(a.double()),
+                   on_card(h0.double())),
+           "contiguous": (on_card(a.transpose(1, 2).contiguous()
+                                  .transpose(1, 2)), on_card(a), on_card(h0)),
+           "expected": (on_card(a), on_card(a[:, :3].contiguous()),
+                        on_card(h0))}
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=match):
+            K.rglru_cuda(*args)
+    with pytest.raises(AssertionError, match="reached"):
+        K.rglru_cuda(on_card(a), on_card(a), on_card(h0))
+    y, hT = K.rglru_cuda(*(on_card(x[:0]) for x in (a, a, h0)))
+    assert y.shape == (0, 9, 37) and hT.shape == (0, 37)
+    assert LAUNCHES["rglru"] == before

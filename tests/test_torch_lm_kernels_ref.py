@@ -346,6 +346,101 @@ def test_rglru_plain_matches_reference(B, T, D):
     np.testing.assert_allclose(hT.numpy(), hp, atol=1e-5, rtol=1e-5)
 
 
+def scan_rglru(a, b, h0, run=8, pair_dtype=torch.float64):
+    """The design of ``csrc/rglru_scan.cu`` in plain torch: T cut into runs
+    of ``run`` steps; each run's pair (prod a, its h from 0) in
+    ``pair_dtype``; the carry walks the runs in order in ``pair_dtype``;
+    each run replays its steps in f32 from its carry-in rounded to f32
+    (the kernel fuses a step's multiply and add, here they round
+    separately).  Returns (h, h_T), h_T the last step's h."""
+    carry, hs = h0.to(pair_dtype), []
+    for t0 in range(0, a.shape[1], run):
+        ar, br = a[:, t0:t0 + run], b[:, t0:t0 + run]
+        A, H = torch.ones_like(carry), torch.zeros_like(carry)
+        for j in range(ar.shape[1]):
+            aj = ar[:, j].to(pair_dtype)
+            A, H = A * aj, aj * H + br[:, j].to(pair_dtype)
+        h = carry.to(torch.float32)
+        for j in range(ar.shape[1]):
+            h = ar[:, j] * h + br[:, j]
+            hs.append(h)
+        carry = A * carry + H
+    return (torch.stack(hs, 1) if hs else torch.zeros_like(a)), \
+        (hs[-1] if hs else h0)
+
+
+def rglru_inputs(rng, B, T, D, a_val=None, scaled=False):
+    """a in [0.8, 0.999] (the sweep's), or ``a_val`` everywhere; unit b,
+    or b = sqrt(1 - a^2) x as RG-LRU forms it (``models/rglru.py``)."""
+    a = (rng.uniform(0.8, 0.999, (B, T, D)) if a_val is None
+         else np.full((B, T, D), a_val)).astype(np.float32)
+    b = randn(rng, (B, T, D))
+    if scaled:
+        b = (np.sqrt(np.float32(1) - a * a) * b).astype(np.float32)
+    return a, b, randn(rng, (B, D))
+
+
+# T = 1, T off the run of 8 and the segment of 256 (257), D off the
+# 4-channel groups (37), T = 3072 (the prompt: 384 runs of drift)
+RGLRU_DESIGN_SHAPES = RGLRU_SHAPES + [(2, 1, 64), (2, 257, 37),
+                                      (1, 3072, 64)]
+
+
+@pytest.mark.parametrize("B,T,D", RGLRU_DESIGN_SHAPES)
+def test_rglru_scan_design_matches_reference(B, T, D):
+    """The kernel's time-parallel scan against the JAX package's
+    step-by-step ``rglru_ref`` and the interpret-mode Pallas kernel at the
+    kernel's 1e-5; h_T is the last step's h."""
+    a, b, h0 = rglru_inputs(np.random.default_rng(T + D + 2), B, T, D)
+    y, hT = scan_rglru(t(a), t(b), t(h0))
+    assert y.shape == (B, T, D) and torch.equal(hT, y[:, -1])
+    want = [jref.rglru_ref(*(jnp.asarray(x) for x in (a, b, h0)))]
+    if T <= 1024:
+        want.append(rglru_pallas(*(jnp.asarray(x) for x in (a, b, h0)),
+                                 interpret=True))
+    for yr, hr in want:
+        np.testing.assert_allclose(y.numpy(), yr, atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(hT.numpy(), hr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("a_val", [0.0, 1.0, 0.9999])
+@pytest.mark.parametrize("T,scaled", [(100, False), (3072, True)])
+def test_rglru_scan_design_extreme_a(a_val, T, scaled):
+    """a = 0, 1 and 0.9999 against the step-by-step plain version at
+    1e-5: unit b over 100 steps, and b = sqrt(1 - a^2) x over 3072."""
+    a, b, h0 = rglru_inputs(np.random.default_rng(17), 2, T, 64, a_val,
+                            scaled)
+    y, hT = scan_rglru(t(a), t(b), t(h0))
+    yr, hr = tref.rglru_ref(t(a), t(b), t(h0))
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hT, hr, atol=1e-5, rtol=1e-5)
+
+
+def test_rglru_scan_design_needs_f64_pairs():
+    """At a = 0.9999 over 3072 steps (b = sqrt(1 - a^2) x), against the
+    recurrence in f64: f32 pairs round prod a the same way in every run,
+    so the carry drifts further from it than the step-by-step f32 plain
+    version does; f64 pairs stay within a tenth of the 1e-5 bound, closer
+    than the plain version.  At a = 1 with unit b over 3072 steps the
+    step-by-step f32 sum is itself more than 1e-5 from the f64 sum, so
+    there no order of f32 sums is held to 1e-5."""
+    def worst(y, want):                 # over the 1e-5 + 1e-5 |want| bound
+        return float(((y.double() - want).abs()
+                      / (1e-5 + 1e-5 * want.abs())).max())
+
+    a, b, h0 = (t(x) for x in rglru_inputs(np.random.default_rng(17), 2,
+                                           3072, 64, 0.9999, True))
+    exact, _ = tref.rglru_ref(a.double(), b.double(), h0.double())
+    plain = worst(tref.rglru_ref(a, b, h0)[0], exact)
+    assert worst(scan_rglru(a, b, h0)[0], exact) < min(0.1, plain)
+    assert worst(scan_rglru(a, b, h0, pair_dtype=torch.float32)[0],
+                 exact) > plain
+    a, b, h0 = (t(x) for x in rglru_inputs(np.random.default_rng(17), 2,
+                                           3072, 64, 1.0))
+    exact, _ = tref.rglru_ref(a.double(), b.double(), h0.double())
+    assert worst(tref.rglru_ref(a, b, h0)[0], exact) > 1
+
+
 def test_lm_kernel_wrappers_take_cuda_tensors_only():
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.rglru_scan import rglru_cuda
