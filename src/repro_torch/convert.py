@@ -46,6 +46,18 @@ def params_from_jax(np_params: Dict[str, np.ndarray], cfg: CNNConfig,
     return out
 
 
+def cell_params_from_jax(np_params_c: Dict[str, np.ndarray], cfg: CNNConfig,
+                        device=None) -> Dict[str, torch.Tensor]:
+    """The JAX multi-cell engine's stacked cell params (numpy leaves
+    [C, ...]) -> the port's stacked [C, ...] tree, by ``params_from_jax``
+    per cell."""
+    C = len(next(iter(np_params_c.values())))
+    per = [params_from_jax({k: np.asarray(x[c])
+                            for k, x in np_params_c.items()}, cfg, device)
+           for c in range(C)]
+    return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
 def params_to_jax(params: Dict[str, torch.Tensor],
                   cfg: CNNConfig) -> Dict[str, np.ndarray]:
     """Inverse of ``params_from_jax``: numpy arrays in the JAX layout."""

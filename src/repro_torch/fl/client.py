@@ -10,7 +10,8 @@ parallel.
 norms and NaN/Inf flags — into one call batched over a leading *cell*
 axis, whose outputs stay on the device, so the trainer pulls everything
 scheduling needs in a single device->host sync.  ``FederatedTrainer``
-calls it with one cell.
+calls it with one cell; ``MultiCellTrainer`` drives C cells per
+aggregation step through the same call.
 
 Dropout randomness cannot be drawn from an explicit generator inside
 ``vmap``, so the caller draws the keep masks (leaves [V, tau, ...]) and
@@ -59,8 +60,8 @@ def make_round_core(loss_fn: Callable, sigma_fn: Callable, eta: float,
     """Fused round core, batched over cells.
 
     loss_fn(params, batch, dropout) -> (loss, metrics);
-    sigma_fn(params, images [V, b, ...], labels [V, b]) -> [V] sigma_v
-    (Eq. 10, every device at once).
+    sigma_fn(params_c, images [C, V, b, ...], labels [C, V, b]) -> [C, V]
+    sigma_v (Eq. 10 for every device of every cell given, in one call).
 
     Returns core(params, batches, dropout) where ``params`` has a
     leading [C] cell axis, ``batches`` leaves [C, V, tau, batch, ...] and
@@ -77,21 +78,22 @@ def make_round_core(loss_fn: Callable, sigma_fn: Callable, eta: float,
                                the sanitizer needs no extra round-trip)
 
     all on the device.  The cell axis is a loop: each cell runs the
-    single-cell computation, so a cell's numbers equal a standalone
-    trainer's."""
+    single-cell local update, deltas, norms and flags, so a cell's
+    numbers equal a standalone trainer's (a ``vmap`` over the cells lost
+    1.4x on the H100, where it turns every convolution into a grouped one
+    over C*V groups; PERF.md).  ``sigma_fn`` is called once for all
+    cells: one launch of its kernel covers every device of every cell."""
     update = make_local_update(loss_fn, eta, tau)
 
     def one_cell(params, batches, dropout):
         dev_params, losses = update(params, batches, dropout)
-        sigma_v = sigma_fn(params, batches["images"][:, 0],
-                           batches["labels"][:, 0])
         deltas = {k: dev_params[k] - params[k][None] for k in params}
         delta_norms = tree_row_norms(deltas)
         finite = None
         for x in tree_leaves(deltas):
             f = torch.isfinite(x).reshape(x.shape[0], -1).all(dim=1)
             finite = f if finite is None else finite & f
-        return dev_params, losses, sigma_v, deltas, delta_norms, finite
+        return dev_params, losses, deltas, delta_norms, finite
 
     def core(params_c, batches_c, dropout_c=()):
         num_cells = tree_leaves(params_c)[0].shape[0]
@@ -106,7 +108,10 @@ def make_round_core(loss_fn: Callable, sigma_fn: Callable, eta: float,
                                 for k in first})
             else:
                 stacked.append(torch.stack([o[i] for o in outs]))
-        return tuple(stacked)
+        dev_params, losses, deltas, norms, finite = stacked
+        sigma_v = sigma_fn(params_c, batches_c["images"][:, :, 0],
+                           batches_c["labels"][:, :, 0])
+        return dev_params, losses, sigma_v, deltas, norms, finite
 
     return core
 

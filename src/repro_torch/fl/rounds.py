@@ -88,6 +88,8 @@ class FLConfig:
     g_init: float = 1.0
     eval_every: int = 5
     ucb_beta: float = 0.05
+    num_cells: int = 1                   # cells per aggregation step
+    #   (``MultiCellTrainer``; a ``FederatedTrainer`` simulates one cell)
     faults: FaultConfig = dataclasses.field(default_factory=FaultConfig)
     obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
 
@@ -237,16 +239,24 @@ class FederatedTrainer:
             out.append(u < 1.0 - rate)
         return tuple(out)
 
-    def _sigma_all(self, params, images, labels):
+    def _sigma_all(self, params_c, images, labels):
         """Eq. 10 for the classifier head on every device's first batch
-        at once, through the ``persample_gradnorm`` kernel: images
-        [V, b, ...], labels [V, b] -> [V]."""
-        V, b = labels.shape
-        feats, logits = _cnn_features_logits(
-            params, self.model.cfg, images.reshape((V * b,) + images.shape[2:]))
-        return E.sigma_hat_lastlayer(feats.reshape(V, b, -1),
-                                     logits.reshape(V, b, -1), labels,
-                                     use_kernel=True)
+        of every cell at once, through one launch of the
+        ``persample_gradnorm`` kernel: params [C, ...], images
+        [C, V, b, ...], labels [C, V, b] -> [C, V].  Each cell's
+        features come from one forward pass of its own model (a plain
+        convolution over the cell's V*b images, where a ``vmap`` over
+        the cells would run grouped ones)."""
+        C, V, b = labels.shape
+        images = images.reshape((C, V * b) + images.shape[3:])
+        outs = [_cnn_features_logits({k: x[c] for k, x in params_c.items()},
+                                     self.model.cfg, images[c])
+                for c in range(C)]
+        feats, logits = (torch.cat(o) if C > 1 else o[0]
+                         for o in zip(*outs))
+        return E.sigma_hat_lastlayer(
+            feats.reshape(C * V, b, -1), logits.reshape(C * V, b, -1),
+            labels.reshape(C * V, b), use_kernel=True).reshape(C, V)
 
     # ------------------------------------------------------------------
     def _schedule(self, prob: S.Problem, avail_idx, gains, delta_norms,

@@ -7,11 +7,19 @@
 //   e_i      = softmax(logits_i) - onehot(y_i)
 //   gi_sq_i  = ||h_i||^2 * ||e_i||^2           (per-sample grad norm^2)
 //   gbar     = H^T E / B                        ([d, C] mean gradient)
-//   sigma    = sqrt(max(mean_i gi_sq_i - ||gbar||^2, 0))
+//   sigma    = sqrt(mean_i ||h_i e_i^T - gbar||^2)
 //
 // without ever forming the [B, d, C] per-sample gradients.  h and logits
 // are f32; labels int64 (as the FL round passes them) or int32, read as
 // they come.
+//
+// sigma is summed in two passes, over the deviations h_ik e_ic - gbar_kc
+// themselves, as the plain version sums them.  The TPU kernel's one pass,
+// mean_i gi_sq_i - ||gbar||^2, cancels: where the per-sample gradients
+// share a large common part (a model far into training, or diverging,
+// mean gi_sq / sigma^2 reached 1e4 on the FL round's data) its f32 result
+// lost three digits, against under 1e-5 for the two passes
+// (tests/test_torch_kernels_ref.py::test_sigma_two_pass_needed).
 //
 // What bounds it on an H100: neither bytes nor operations.  At the
 // round's shape (23 devices of B = 32, d = 120, C = 10) the inputs are
@@ -35,18 +43,19 @@
 //   3. Per feature tile: ||h_i||^2, 8 lanes a row, summed over the tiles;
 //      and H^T E, a thread a column k holding 16 classes in registers: per
 //      row one h load and four 16-byte E loads that the whole warp shares
-//      (a broadcast), 16 FMAs.  Each thread adds its columns' squared
-//      means to its share of ||gbar||^2.
-//   4. gi_sq_i = ||h_i||^2 ||e_i||^2; two block sums in a fixed order give
-//      sigma.
+//      (a broadcast), 16 FMAs.  The same thread then walks the rows again
+//      and adds (h_ik e_ic - gbar_kc)^2, one FMA's rounding each, to its
+//      share of the deviations' sum.
+//   4. gi_sq_i = ||h_i||^2 ||e_i||^2; a block sum in a fixed order of the
+//      deviations gives sigma.
 // No atomics; every sum has a fixed order, so two calls on one input
 // give one bit pattern (the FL round's determinism rests on it).
 //
 // Where the time goes (PERF.md has the numbers): 23 blocks on 132 SMs,
-// each a chain of one load of its 16 KB, the softmax, the H^T E loop
-// over the B rows (the longest serial part), and seven barriers; on an
-// H100 the warp-a-row kernel before it took 2.5x as long, its rows' global
-// loads waited on one after another.  A call's host path (validation,
+// each a chain of one load of its 16 KB, the softmax, the H^T E loop and
+// the deviations' loop over the B rows (the longest serial parts), and
+// five barriers; on an H100 the warp-a-row kernel before it took 2.5x as
+// long, its rows' global loads waited on one after another.  A call's host path (validation,
 // two outputs, the ctypes call) costs several times the kernel.
 //
 // Plain C interface, loaded with ctypes.  The launcher makes `device`
@@ -208,9 +217,10 @@ psg_kernel(const float* __restrict__ h, const float* __restrict__ logits,
     if (live && q == 0) ee_s[i] = ee;
   }
 
-  // 3. per feature tile: ||h_i||^2 and this tile's columns of H^T E
+  // 3. per feature tile: ||h_i||^2, this tile's columns of H^T E, and the
+  //    squared deviations from them
   const float inv_b = 1.f / (float)B;
-  float gb = 0.f;
+  float dev = 0.f;
   for (int k0 = 0; k0 < d; k0 += kt) {
     const int w = min(kt, d - k0);
     if (k0 > 0) {
@@ -246,10 +256,23 @@ psg_kernel(const float* __restrict__ h, const float* __restrict__ logits,
             acc[4 * j4 + 3] += hv * e.w;
           }
         }
+        const int nc = min(kCB, C - c0);         // classes of this chunk
 #pragma unroll
-        for (int j = 0; j < kCB; ++j) {
-          const float g = acc[j] * inv_b;
-          if (c0 + j < C) gb += g * g;
+        for (int j = 0; j < kCB; ++j) acc[j] = -acc[j] * inv_b;   // -gbar
+        for (int i = 0; i < B; ++i) {
+          const float hv = h_s[i * w + k];
+          const float4* er = reinterpret_cast<const float4*>(e_s + i * cp + c0);
+#pragma unroll
+          for (int j4 = 0; j4 < kCB / 4; ++j4) {
+            const float4 e = er[j4];
+            const float x[4] = {fmaf(hv, e.x, acc[4 * j4]),
+                                fmaf(hv, e.y, acc[4 * j4 + 1]),
+                                fmaf(hv, e.z, acc[4 * j4 + 2]),
+                                fmaf(hv, e.w, acc[4 * j4 + 3])};
+#pragma unroll
+            for (int t = 0; t < 4; ++t)
+              if (4 * j4 + t < nc) dev += x[t] * x[t];
+          }
         }
       }
     }
@@ -257,15 +280,9 @@ psg_kernel(const float* __restrict__ h, const float* __restrict__ logits,
   __syncthreads();
 
   // 4. gi_sq and sigma
-  float gi_total = 0.f;
-  for (int i = tid; i < B; i += kThreads) {
-    const float g = hh_s[i] * ee_s[i];
-    gi_sq[i] = g;
-    gi_total += g;
-  }
-  gi_total = block_sum(gi_total, scratch);
-  gb = block_sum(gb, scratch);
-  if (tid == 0) sigma[v] = sqrtf(fmaxf(gi_total * inv_b - gb, 0.f));
+  for (int i = tid; i < B; i += kThreads) gi_sq[i] = hh_s[i] * ee_s[i];
+  dev = block_sum(dev, scratch);
+  if (tid == 0) sigma[v] = sqrtf(dev * inv_b);
 }
 
 template <class F>

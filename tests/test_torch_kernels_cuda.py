@@ -9,6 +9,7 @@ GPU host that has only PyTorch:
 import numpy as np
 import pytest
 import torch
+from _torch_psg import psg_aligned, sigma_f64
 
 from repro_torch.kernels import ref as tref
 
@@ -46,7 +47,8 @@ def cuda():
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,V,C", SWAP_SHAPES + [(32, 19, 10), (2, 300, 10)])
+@pytest.mark.parametrize("B,V,C", SWAP_SHAPES + [(32, 19, 10), (2, 300, 10),
+                                                 (40, 28, 10)])
 def test_wemd_swap_kernel_on_card(cuda, B, V, C):
     from repro_torch.kernels.wemd_swap import wemd_swap_cuda
     args = to_torch(wemd_inputs(B, V, C, min(5, V), seed=V), cuda)
@@ -57,7 +59,8 @@ def test_wemd_swap_kernel_on_card(cuda, B, V, C):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("B,V,C", ADD_SHAPES + [(1, 19, 10), (2, 300, 10)])
+@pytest.mark.parametrize("B,V,C", ADD_SHAPES + [(1, 19, 10), (2, 300, 10),
+                                                (8, 28, 10)])
 def test_wemd_add_kernel_on_card(cuda, B, V, C):
     from repro_torch.kernels.wemd_swap import wemd_add_cuda
     args = to_torch(wemd_inputs(B, V, C, min(3, V), seed=V), cuda)
@@ -132,7 +135,8 @@ def test_persample_gradnorm_kernel_on_card(cuda, B, d, C):
 # the round's shape at V = 23; B off 32 with d off 4 (4-byte copies); 100
 # classes (7 blocks of 16); (100, 512, 100): h in two column tiles
 PSG_BATCHED_CASES = [(23, 32, 120, 10), (3, 33, 37, 10), (2, 32, 120, 100),
-                     (2, 100, 512, 100)]
+                     (2, 100, 512, 100),
+                     (200, 32, 120, 10)]     # one 8-cell round's launch
 
 
 def psg_batched(V, B, d, C, seed, device):
@@ -162,6 +166,24 @@ def test_persample_gradnorm_kernel_labels_on_card(cuda, V, B, d, C):
     sr, gr = tref.persample_gradnorm_ref(h, logits, labels)
     torch.testing.assert_close(s64, sr, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(g64, gr, atol=1e-2, rtol=1e-3)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("V,B,d,C", [(8, 32, 120, 10), (2, 100, 512, 100)])
+def test_persample_gradnorm_kernel_aligned_gradients_on_card(cuda, V, B, d,
+                                                             C):
+    """Where the per-sample gradients nearly agree (mean ||g_i||^2 /
+    sigma^2 ~ 1e5) the kernel's sum over the deviations stays within
+    1e-5 of Eq. 10 in f64; the TPU kernel's one-pass sum lost
+    three digits there (tests/test_torch_kernels_ref.py::
+    test_sigma_two_pass_needed).  (100, 512, 100) takes column tiles."""
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    h, logits, labels = to_torch(psg_aligned(V, B, d, C, V + d), cuda)
+    s, _ = persample_gradnorm_cuda_batched(h, logits, labels)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(s.double(), sigma_f64(h, logits, labels),
+                               atol=0, rtol=1e-5)
 
 
 @pytest.mark.requires_cuda

@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_psg import psg_aligned, sigma_f64
 
 from repro.kernels import ref as jref
 from repro.kernels.persample_gradnorm import persample_gradnorm_pallas
@@ -113,18 +114,45 @@ def test_persample_gradnorm_batched_plain_is_per_device():
 
 def psg_tiled(h, logits, labels, kt):
     """The sums of ``csrc/persample_gradnorm.cu`` in plain torch, one
-    device: E once, then ||h_i||^2 and the columns of H^T E a feature tile
-    of ``kt`` columns at a time."""
+    device: E once, then ||h_i||^2, the columns of H^T E and the squared
+    deviations h_ik e_ic - gbar_kc from them a feature tile of ``kt``
+    columns at a time (the second pass over the rows)."""
     B, d = h.shape
     p = torch.softmax(logits, dim=-1)
     e = p - torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
-    hh, gb = torch.zeros(B), torch.zeros(())
+    hh, dev = torch.zeros(B), torch.zeros(())
     for k0 in range(0, d, kt):
         tile = h[:, k0:k0 + kt]
         hh = hh + (tile * tile).sum(-1)
-        gb = gb + ((tile.T @ e / B) ** 2).sum()
-    gi_sq = hh * (e * e).sum(-1)
-    return torch.sqrt(torch.clamp(gi_sq.mean() - gb, min=0.0)), gi_sq
+        gbar = tile.T @ e / B
+        dev = dev + ((tile[:, :, None] * e[:, None, :] - gbar) ** 2).sum()
+    return torch.sqrt(dev / B), hh * (e * e).sum(-1)
+
+
+def psg_one_pass(h, logits, labels):
+    """The TPU kernel's sums: sqrt(max(mean gi_sq - ||H^T E / B||^2, 0))."""
+    p = torch.softmax(logits, dim=-1)
+    e = p - torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    gi_sq = (h * h).sum(-1) * (e * e).sum(-1)
+    gb = ((h.T @ e / h.shape[0]) ** 2).sum()
+    return torch.sqrt(torch.clamp(gi_sq.mean() - gb, min=0.0))
+
+
+@pytest.mark.parametrize("kt", [120, 16])
+def test_sigma_two_pass_needed(kt):
+    """Why the kernel sums sigma over the deviations in a second pass: on
+    aligned per-sample gradients (mean ||g_i||^2 / sigma^2 ~ 1e5, as a
+    diverging FL round showed on the card) the one-pass f32 sum loses
+    three digits, the two passes keep f32's."""
+    one_err = []
+    for seed in range(3):
+        h, lg, y = to_torch([x[0] for x in psg_aligned(1, 32, 120, 10,
+                                                       seed)])
+        truth = float(sigma_f64(h, lg, y))
+        one_err.append(abs(float(psg_one_pass(h, lg, y)) - truth) / truth)
+        two = float(psg_tiled(h, lg, y, kt)[0])
+        assert abs(two - truth) <= 1e-5 * truth
+    assert max(one_err) > 1e-3
 
 
 @pytest.mark.parametrize("B,d,C", PSG_SHAPES + [(32, 120, 10), (33, 37, 10),
