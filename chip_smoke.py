@@ -23,9 +23,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      steps, b = sqrt(1 - a^2) x over 3072), h_T the last step's h and a
      second call bitwise equal; persample_gradnorm on int64 and int32
      labels, bitwise equal, at B = 33 / d = 37, C = 100 and h in column
-     tiles, and V = 0 launching nothing);
-  3. solves 50 seeded random P1 problems with the torch scheduler on the
-     card and requires the numpy solvers' masks and iteration counts;
+     tiles, and V = 0 launching nothing; the WEMD kernels also at 100
+     classes, (1, 64, 100), (8, 27, 100), (32, 23, 100), and
+     persample_gradnorm at the ResNet's d = 512, C = 100 for V = 19 and
+     152, aligned gradients included);
+  3. solves 100 seeded random P1 problems with the torch scheduler on the
+     card (25 at each of V = 16 and 64 for C = 10 and C = 100) and
+     requires the numpy solvers' masks and iteration counts;
   4. drives the FL main path: ``FederatedTrainer`` on the full-width
      paper CNN (V=64 devices, batch 32, 32x32x3 images, dropout on), 3
      rounds of ``fedcgd-fscd`` and 3 of ``fedcgd-gs`` with
@@ -34,7 +38,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      Eq. 10 sigmas (from the ``persample_gradnorm`` kernel) within 2e-6
      relative plus 1e-6 of the device's rms ||h_i|| of Eq. 10 in f64
      from the materialised per-sample gradients on the same features,
-     and every FL kernel must have been launched in that run; a second
+     one ``solve_many`` and one K3 launch, and every FL kernel must have
+     been launched in that run; a second
      ``fedcgd-fscd`` trainer on the same seed must give a bitwise-equal
      history (records, masks, iteration counts, sigmas) and bitwise-equal
      params after its 3 rounds; then one more round of each, held to the
@@ -53,7 +58,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      single-cell warm rounds, one profiled 8-cell round of each
      scheduler, and each cell's sigmas against Eq. 10 in f64 beside the
      closed form's and the one-pass sum's;
-  6. drives the LM serving path through ``repro_torch.serve.generate``:
+  6. drives the same path on ResNet18-GN (``RESNET18_GN_CIFAR100``:
+     32x32x3 images, 64-512 channels, 11.22 M parameters) on synthetic
+     CIFAR-100-shaped data (100 classes x 500, sorted over 64 devices,
+     seed 0) with phase 4's config: phase 4's rounds and checks (K1/K2
+     over 100 classes, K3 at d = 512), then 2 FSCD rounds of an 8-cell
+     engine held to phase 5's round checks; logs peak memory;
+  7. drives the LM serving path through ``repro_torch.serve.generate``:
      recurrentgemma-2b, then rwkv6-3b, each at published width and full
      depth in bf16 with seeded random weights, B=4 prompts of 3072
      tokens (longer than the 2048 window), 32 sampled tokens.  Prefill
@@ -65,9 +76,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      reduced config (2e-3 * scale, the bound of the JAX package's
      tests/test_models_smoke.py) and in bf16 on the full ones and on
      their first layers (``BF16_CONSISTENCY``, ``LM_DEPTHS``);
-  7. times each kernel at the shapes of its last main-path launch (the
+  8. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes; K1-K3 also at their 8-cell
-     shapes, rows ``<name>@C8``) beside its plain version, one
+     shapes, rows ``<name>@C8``, K1/K2 at the ResNet rounds' 100
+     classes, rows ``<name>@C100``, and K3 at the ResNet's single-cell
+     and 8-cell shapes, rows ``persample_gradnorm@R`` and ``@Rx8``)
+     beside its plain version, one
      library call where one computes the same function (``cdist`` for
      the WEMD scans, ``scaled_dot_product_attention`` under the window
      mask for attention), and the least time the card could take (its
@@ -510,8 +524,9 @@ def phase_kernel_checks(torch, dev):
 
 def psg_checks(torch, dev, close):
     """The batched Eq. 10 kernel at the round's shapes (V = 19, 23, 64,
-    and 200 for 8 cells), B off 32 with d off 4, C = 100 and h in column
-    tiles (100, 512, 100): sigma within 1e-3, gi_sq within atol 1e-2;
+    and 200 for 8 cells; the ResNet's d = 512 and C = 100 at V = 19 and
+    152), B off 32 with d off 4, C = 100 and h in column tiles (100, 512,
+    100): sigma within 1e-3, gi_sq within atol 1e-2;
     int64 labels (the round's) and int32 labels give one bit pattern, and
     so does a second call; on nearly aligned per-sample gradients sigma
     within 1e-5 relative of Eq. 10 in f64; V = 0 launches nothing."""
@@ -522,7 +537,8 @@ def psg_checks(torch, dev, close):
     for i, (V, B, d, C) in enumerate([(19, 32, 120, 10), (23, 32, 120, 10),
                                       (64, 32, 120, 10), (3, 33, 37, 10),
                                       (2, 32, 120, 100), (2, 100, 512, 100),
-                                      (200, 32, 120, 10)]):
+                                      (200, 32, 120, 10), (19, 32, 512, 100),
+                                      (152, 32, 512, 100)]):
         h, logits, labels = psg_inputs(torch, V, B, d, C, 70 + i, dev)
         s, gi = kern(h, logits, labels)
         s32, gi32 = kern(h, logits, labels.to(torch.int32))
@@ -535,7 +551,9 @@ def psg_checks(torch, dev, close):
                 and torch.equal(gi, again[1]),
                 f"persample_gradnorm at {(V, B, d, C)}: int64 and int32 "
                 f"labels, or two calls, differ")
-    for i, (V, B, d, C) in enumerate([(8, 32, 120, 10), (2, 100, 512, 100)]):
+    for i, (V, B, d, C) in enumerate([(8, 32, 120, 10), (2, 100, 512, 100),
+                                      (19, 32, 512, 100),
+                                      (152, 32, 512, 100)]):
         h, logits, labels = psg_aligned(torch, V, B, d, C, 90 + i, dev)
         s, _ = kern(h, logits, labels)
         close("persample_gradnorm.aligned", s.double(),
@@ -552,15 +570,18 @@ def wemd_checks(torch, dev, close):
     """Both WEMD kernels against their plain versions to 1e-5 at the sweep
     and the round's shapes, on f32 inputs and on f64 inputs (the
     scheduler's); the f64 output must be bitwise the output on the
-    f32-cast inputs.  (2, 300, 10) takes more than one block of devices."""
+    f32-cast inputs.  (2, 300, 10) takes more than one block of devices;
+    the last three shapes are the ResNet rounds' 100 classes."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
     f64 = torch.float64
+    resnet = [(1, 64, 100), (8, 27, 100), (32, 23, 100)]
     swap_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
                    (1, 130, 130), (2, 19, 11), (32, 19, 10), (32, 64, 10),
-                   (2, 300, 10)]
+                   (2, 300, 10)] + resnet
     add_shapes = [(2, 16, 10), (1, 64, 10), (3, 7, 5), (2, 33, 100),
-                  (1, 19, 10), (1, 64, 10), (1, 130, 130), (2, 300, 10)]
+                  (1, 19, 10), (1, 64, 10), (1, 130, 130),
+                  (2, 300, 10)] + resnet
     for name, kern, plain, shapes, size, seed in (
             ("wemd_swap", wemd_swap_cuda, ref.wemd_swap_ref, swap_shapes, 5,
              10),
@@ -693,9 +714,9 @@ def phase_scheduler(torch, dev):
                          min_bw=min_bw, total_bw=V * 0.5)
 
     obs = Obs(enabled=True)
-    for V in (16, 64):
-        rng = np.random.default_rng(2000 + V)
-        probs = [random_problem(rng, V, 10, 0.2 if t % 3 == 0 else 0.0)
+    for C, V in ((10, 16), (10, 64), (100, 16), (100, 64)):
+        rng = np.random.default_rng(2000 + V + (C != 10))
+        probs = [random_problem(rng, V, C, 0.2 if t % 3 == 0 else 0.0)
                  for t in range(25)]
         for alg, fn in (("gs", S.greedy_scheduling), ("fscd", S.fscd)):
             t0 = time.perf_counter()
@@ -706,9 +727,9 @@ def phase_scheduler(torch, dev):
                 e = fn(p)
                 require(np.array_equal(e.mask, g.mask)
                         and e.iterations == g.iterations,
-                        f"scheduler {alg} V={V} problem {t}: mask or "
+                        f"scheduler {alg} V={V} C={C} problem {t}: mask or "
                         f"iterations differ from numpy")
-            log(f"scheduler {alg} V={V}: 25 problems equal to numpy, "
+            log(f"scheduler {alg} V={V} C={C}: 25 problems equal to numpy, "
                 f"{dt:.3f} s")
     c = obs.metrics.counters
     log(f"scheduler host syncs: {int(c['sched.host_syncs.torch'].value)} "
@@ -784,21 +805,34 @@ def log_sigma_errors(tag, errs):
         f"{top:.4g}, at most {share:.3g} of the tolerance")
 
 
-def fl_world():
-    """The main path's world: the full-width paper CNN, synthetic 32x32x3
-    images of 10 classes, sorted and split over 64 devices, seed 0:
-    (model, train, test, parts)."""
+def vision_world(cfg):
+    """A vision model's world: the model at full width, synthetic 32x32x3
+    images of its classes (500 a class, as CIFAR's training sets), sorted
+    and split over 64 devices, seed 0: (model, train, test, parts)."""
     import numpy as np
-    from repro_torch.configs.paper_cnn import PAPER_CNN_CIFAR10
     from repro_torch.data import (sort_and_partition, synthetic_image_dataset,
                                   train_test_split)
     from repro_torch.models.registry import build_model
-    ds = synthetic_image_dataset(num_classes=10, num_per_class=500,
-                                 image_size=32, channels=3, seed=0)
+    ds = synthetic_image_dataset(num_classes=cfg.num_classes,
+                                 num_per_class=500, image_size=32, channels=3,
+                                 seed=0)
     train, test = train_test_split(ds, seed=0)
     parts = sort_and_partition(train.labels, 64, 1,
                                np.random.default_rng(0))
-    return build_model(PAPER_CNN_CIFAR10), train, test, parts
+    return build_model(cfg), train, test, parts
+
+
+def fl_world():
+    """The main path's world: the full-width paper CNN on 10 classes."""
+    from repro_torch.configs.paper_cnn import PAPER_CNN_CIFAR10
+    return vision_world(PAPER_CNN_CIFAR10)
+
+
+def resnet_world():
+    """The ResNet phase's world: ResNet18-GN on 100 classes (CIFAR-100's
+    shape), 64-512 channels, 11.22 M parameters."""
+    from repro_torch.configs.paper_cnn import RESNET18_GN_CIFAR100
+    return vision_world(RESNET18_GN_CIFAR100)
 
 
 def fl_config(sched_name, ring_size=16):
@@ -812,8 +846,10 @@ def fl_config(sched_name, ring_size=16):
 
 
 def phase_main_path(torch, dev, prof_ok, world):
-    """The single-cell main path on ``world``; returns the FL kernels'
-    launches and last shapes, and the warm rounds' ms by scheduler."""
+    """The single-cell main path on ``world`` (its logs tagged with the
+    model's name): every round held to ``check_round`` with one
+    ``solve_many`` and one K3 launch; returns the FL kernels' launches
+    and last shapes, and the warm rounds' ms by scheduler."""
     from repro_torch.core import scheduling as S
     from repro_torch.fl import FederatedTrainer
     from repro_torch.kernels import common
@@ -837,19 +873,29 @@ def phase_main_path(torch, dev, prof_ok, world):
         tr.solved, tr.sigmas = [], []
         return tr
 
+    model = world[0].name
     trainers, warm = {}, {}
     sigma_err = []
+    torch.cuda.reset_peak_memory_stats()
     common.reset_launches()
     for sched_name, solve in (("fedcgd-fscd", S.fscd),
                               ("fedcgd-gs", S.greedy_scheduling)):
         tr = new_trainer(sched_name)
+        tag = f"{model} {sched_name}"
         for j in range(3):
+            k3 = common.LAUNCHES["persample_gradnorm"]
             rec = tr.run_round(j)
+            k3 = common.LAUNCHES["persample_gradnorm"] - k3
+            calls = tr.obs.metrics.counters["sched.solve_many_calls.torch"]
+            require(k3 == 1 and len(tr.solved) == j + 1
+                    and calls.value == j + 1,
+                    f"{tag} round {j}: K3 launched {k3} times, "
+                    f"{calls.value} solves")
             sigma_err.append(check_round(
-                torch, tr, solve, f"{sched_name} round {j}", rec))
+                torch, tr, solve, f"{tag} round {j}", rec))
         require(all(bool(torch.isfinite(p).all())
                     for p in tr.params.values()),
-                f"{sched_name}: params not finite")
+                f"{tag}: params not finite")
         recs = tr.obs.records()
         c = tr.obs.metrics.counters
         syncs = c["sched.host_syncs.torch"].value
@@ -857,30 +903,32 @@ def phase_main_path(torch, dev, prof_ok, world):
         for r in recs:
             ph = " ".join(f"{k}={v * 1e3:.2f}ms"
                           for k, v in r["phases"].items())
-            log(f"{sched_name} round {r['round']}: round={r['round_s'] * 1e3:.2f}"
+            log(f"{tag} round {r['round']}: round={r['round_s'] * 1e3:.2f}"
                 f"ms {ph} | avail={r['num_available']} "
                 f"sched={r['num_scheduled']} loss={r['mean_local_loss']:.4f}"
                 f" sched_iters={r['sched_iterations']} host_syncs="
                 f"{r['host_syncs']}")
-        log(f"{sched_name}: {syncs / calls:.1f} scheduler host syncs per "
+        log(f"{tag}: {syncs / calls:.1f} scheduler host syncs per "
             f"solve ({int(calls)} solves)")
         trainers[sched_name] = (tr, solve)
         warm[sched_name] = [r["round_s"] * 1e3 for r in recs[1:]]
     launches = dict(common.LAUNCHES)
     shapes = dict(common.LAST_SHAPES)
-    log(f"main path launches: {launches}")
+    log(f"{model} main path launches: {launches}, last shapes {shapes}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for name in FL_KERNELS:
         require(launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the main path")
+                f"kernel {name} was not launched on the {model} main path")
     tr, _ = trainers["fedcgd-fscd"]
     twin = new_trainer("fedcgd-fscd")
     for j in range(3):
         twin.run_round(j)
-    check_same_run(torch, tr, twin, "fedcgd-fscd")
+    check_same_run(torch, tr, twin, f"{model} fedcgd-fscd")
     if prof_ok:
         for sched_name, (tr, solve) in trainers.items():
-            sigma_err.append(profile_round(torch, sched_name, tr, solve))
-    log_sigma_errors("main path", sigma_err)
+            sigma_err.append(profile_round(torch, f"{model} {sched_name}",
+                                           tr, solve))
+    log_sigma_errors(f"{model} main path", sigma_err)
     return launches, shapes, warm
 
 
@@ -1083,33 +1131,8 @@ def phase_multicell(torch, dev, prof_ok, world, single_ms):
     common.reset_launches()
     for sched_name, solve in (("fedcgd-fscd", S.fscd),
                               ("fedcgd-gs", S.greedy_scheduling)):
-        mc = checked_engine(world, mc_config(sched_name))
-        for j in range(3):
-            k3 = common.LAUNCHES["persample_gradnorm"]
-            calls = mc.solve_many_calls
-            recs = mc.run_round(j)
-            k3 = common.LAUNCHES["persample_gradnorm"] - k3
-            tag = f"{sched_name} {C} cells round {j}"
-            require(mc.solve_many_calls == calls + 1,
-                    f"{tag}: {mc.solve_many_calls - calls} solve_many calls")
-            require(k3 == 1, f"{tag}: K3 launched {k3} times")
-            sigma_err.append(check_mc_round(torch, mc, solve, tag, recs))
-            probs, scheds = mc.solved[-1]
-            log(f"{tag}: avail {[p.num_devices for p in probs]} sched "
-                f"{[r['num_scheduled'] for r in recs]} iterations "
-                f"{[s.iterations for s in scheds]} loss "
-                f"{[round(r['mean_local_loss'], 4) for r in recs]}")
-        require(all(bool(torch.isfinite(p).all())
-                    for p in mc._params_c.values()),
-                f"{sched_name} {C} cells: params not finite")
-        for r in engine_records(mc):
-            ph = " ".join(f"{k}={v * 1e3:.2f}ms"
-                          for k, v in r["phases"].items())
-            log(f"{sched_name} {C} cells round {r['round']}: "
-                f"round={r['round_s'] * 1e3:.2f}ms {ph} | host_syncs="
-                f"{r['host_syncs']} solve_many_calls={r['solve_many_calls']}"
-                f" uploaded={r['num_uploaded']}")
-        warm = [r["round_s"] * 1e3 for r in engine_records(mc)[1:]]
+        mc, warm = run_engine(torch, world, sched_name, solve, C, 3,
+                              sigma_err)
         one = single_ms[sched_name]
         log(f"{sched_name}: warm {C}-cell rounds {[f'{t:.2f}' for t in warm]}"
             f" ms against {C} x the single-cell warm rounds "
@@ -1146,6 +1169,84 @@ def phase_multicell(torch, dev, prof_ok, world, single_ms):
                        f"fedcgd-gs {C} cells round {last} sigmas")
     log_sigma_errors(f"{C}-cell", sigma_err)
     return launches, shapes
+
+
+def run_engine(torch, world, sched_name, solve, cells, rounds, sigma_err):
+    """``rounds`` rounds of a ``cells``-cell engine on ``world``, each
+    held to ``check_mc_round`` with one ``solve_many`` and one K3 launch
+    (its sigma errors appended to ``sigma_err``), its rounds and phase
+    spans logged; returns the engine and its warm rounds' ms."""
+    from repro_torch.kernels import common
+    mc = checked_engine(world, mc_config(sched_name, cells))
+    tag = f"{world[0].name} {sched_name} {cells} cells"
+    for j in range(rounds):
+        k3 = common.LAUNCHES["persample_gradnorm"]
+        calls = mc.solve_many_calls
+        recs = mc.run_round(j)
+        k3 = common.LAUNCHES["persample_gradnorm"] - k3
+        require(mc.solve_many_calls == calls + 1,
+                f"{tag} round {j}: {mc.solve_many_calls - calls} "
+                f"solve_many calls")
+        require(k3 == 1, f"{tag} round {j}: K3 launched {k3} times")
+        sigma_err.append(check_mc_round(torch, mc, solve,
+                                        f"{tag} round {j}", recs))
+        probs, scheds = mc.solved[-1]
+        log(f"{tag} round {j}: avail {[p.num_devices for p in probs]} sched "
+            f"{[r['num_scheduled'] for r in recs]} iterations "
+            f"{[s.iterations for s in scheds]} loss "
+            f"{[round(r['mean_local_loss'], 4) for r in recs]}")
+    require(all(bool(torch.isfinite(p).all())
+                for p in mc._params_c.values()),
+            f"{tag}: params not finite")
+    for r in engine_records(mc):
+        ph = " ".join(f"{k}={v * 1e3:.2f}ms"
+                      for k, v in r["phases"].items())
+        log(f"{tag} round {r['round']}: "
+            f"round={r['round_s'] * 1e3:.2f}ms {ph} | host_syncs="
+            f"{r['host_syncs']} solve_many_calls={r['solve_many_calls']}"
+            f" uploaded={r['num_uploaded']}")
+    return mc, [r["round_s"] * 1e3 for r in engine_records(mc)[1:]]
+
+
+RESNET_CELLS = 8                # cells of the ResNet phase's engine
+
+
+def phase_resnet(torch, dev, prof_ok):
+    """ResNet18-GN on CIFAR-100's shape at full width: the main path's
+    checks on its world (``phase_main_path``: 3 rounds each of FSCD and
+    GS, a second FSCD trainer bitwise equal, profiled rounds), then 2
+    FSCD rounds of a ``RESNET_CELLS``-cell engine held to
+    ``check_mc_round``, the last round's sigmas logged by
+    ``sigma_conditioning``.  Returns the single-cell and the engine's FL
+    kernel launches and last shapes."""
+    from repro_torch.core import scheduling as S
+    from repro_torch.kernels import common
+    t0 = time.perf_counter()
+    world = resnet_world()
+    n_params = sum(x.numel() for x in
+                   world[0].init(torch.Generator().manual_seed(0)).values())
+    log(f"resnet data: {len(world[1])} train / {len(world[2])} test images "
+        f"32x32x3 of {world[0].cfg.num_classes} classes, 64 devices; "
+        f"{n_params / 1e6:.2f} M parameters "
+        f"({time.perf_counter() - t0:.2f} s)")
+    launches, shapes, _ = phase_main_path(torch, dev, prof_ok, world)
+    sigma_err = []
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    mc, _ = run_engine(torch, world, "fedcgd-fscd", S.fscd, RESNET_CELLS, 2,
+                       sigma_err)
+    mc_launches, mc_shapes = dict(common.LAUNCHES), dict(common.LAST_SHAPES)
+    sigma_conditioning(torch, world[0].cfg, *mc.sigmas[-1],
+                       f"{world[0].name} {RESNET_CELLS} cells round 1 sigmas")
+    log(f"{world[0].name} {RESNET_CELLS}-cell launches over 2 rounds: "
+        f"{mc_launches}, last shapes {mc_shapes}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for name in ("wemd_swap", "persample_gradnorm"):
+        require(mc_launches.get(name, 0) > 0,
+                f"kernel {name} was not launched by the {RESNET_CELLS}-cell "
+                f"ResNet rounds")
+    log_sigma_errors(f"{world[0].name} {RESNET_CELLS}-cell", sigma_err)
+    return launches, shapes, mc_launches, mc_shapes
 
 
 def check_same_engine(torch, a, b, tag):
@@ -1575,6 +1676,10 @@ def main() -> int:
     log(f"[{MC_CELLS} cells] done in {time.perf_counter() - t0:.2f} s")
     del world
     t0 = time.perf_counter()
+    r_launches, r_shapes, rc_launches, rc_shapes = phase_resnet(torch, dev,
+                                                                prof_ok)
+    log(f"[resnet] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     lm_launches, lm_shapes = phase_lm(torch, dev, prof_ok)
     launches.update(lm_launches)
     shapes.update(lm_shapes)
@@ -1584,6 +1689,16 @@ def main() -> int:
              for name in TPU_KERNELS]
     cases += [(f"{name}@C{MC_CELLS}", name, mc_shapes[name],
                mc_launches[name]) for name in FL_KERNELS]
+    # the ResNet phase: K1/K2 over 100 classes, K3 at d = 512 (one cell,
+    # and the engine's cells in one launch)
+    cases += [(f"{name}@C100", name, r_shapes[name], r_launches[name])
+              for name in ("wemd_add", "wemd_swap")]
+    cases += [("persample_gradnorm@R", "persample_gradnorm",
+               r_shapes["persample_gradnorm"],
+               r_launches["persample_gradnorm"]),
+              (f"persample_gradnorm@Rx{RESNET_CELLS}", "persample_gradnorm",
+               rc_shapes["persample_gradnorm"],
+               rc_launches["persample_gradnorm"])]
     rows = phase_timing(torch, dev, cases, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")

@@ -5,10 +5,14 @@ The LM zoo keeps the JAX package's layouts (``wq`` [d, H, hd], ``wo``
 under ``blocks``, remainder layers as ``rem{i}``), so its conversion is a
 dtype-preserving move of every leaf of the nested dict.
 
-The paper CNN's conv kernels are HWIO in JAX and OIHW here.  ``fc1``'s
-rows follow the flatten order before it: (h, w, c) in the JAX model
-(NHWC), (c, h, w) here (NCHW), so they are permuted.  ``fc2``, ``b1``
-and ``b2`` carry over unchanged.  Only numpy crosses the boundary.
+The vision models' conv kernels are HWIO in JAX and OIHW here.  The
+paper CNN's ``fc1`` rows follow the flatten order before it: (h, w, c)
+in the JAX model (NHWC), (c, h, w) here (NCHW), so they are permuted;
+``fc2``, ``b1`` and ``b2`` carry over unchanged.  ResNet18-GN's JAX
+params nest each block's leaves under its name (``{"s2b0": {"conv1":
+...}}``); here they are one flat dict (``"s2b0.conv1"``), every 4-D leaf
+a conv kernel, and ``fc``, ``fc_b`` and the GroupNorm leaves unchanged.
+Only numpy crosses the boundary.
 """
 from __future__ import annotations
 
@@ -29,14 +33,42 @@ def _fc1_grid(cfg: CNNConfig):
     return s, s, channel_widths(cfg)[1]
 
 
-def params_from_jax(np_params: Dict[str, np.ndarray], cfg: CNNConfig,
+def _flatten(tree, prefix=""):
+    """Nested dict -> flat dict with ``"."``-joined keys."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _nest(flat):
+    """Inverse of ``_flatten``."""
+    out = {}
+    for k, v in flat.items():
+        *path, leaf = k.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _is_conv(k: str, v: np.ndarray, cfg: CNNConfig) -> bool:
+    return k in _CONVS if cfg.kind == "paper_cnn" else v.ndim == 4
+
+
+def params_from_jax(np_params: Dict, cfg: CNNConfig,
                     device=None) -> Dict[str, torch.Tensor]:
-    """JAX paper-CNN params (as numpy arrays) -> the port's tensors."""
+    """JAX vision-model params (numpy arrays; the ResNet's nested) -> the
+    port's flat dict of tensors."""
     dev = resolve_device(device)
     out = {}
-    for k, v in np_params.items():
+    for k, v in _flatten(np_params).items():
         v = np.array(v, dtype=np.float32)
-        if k in _CONVS:
+        if _is_conv(k, v, cfg):
             v = v.transpose(3, 2, 0, 1)                 # HWIO -> OIHW
         elif k == "fc1":
             h, w, c = _fc1_grid(cfg)
@@ -51,27 +83,29 @@ def cell_params_from_jax(np_params_c: Dict[str, np.ndarray], cfg: CNNConfig,
     """The JAX multi-cell engine's stacked cell params (numpy leaves
     [C, ...]) -> the port's stacked [C, ...] tree, by ``params_from_jax``
     per cell."""
-    C = len(next(iter(np_params_c.values())))
-    per = [params_from_jax({k: np.asarray(x[c])
-                            for k, x in np_params_c.items()}, cfg, device)
+    flat = _flatten(np_params_c)
+    C = len(next(iter(flat.values())))
+    per = [params_from_jax({k: np.asarray(x[c]) for k, x in flat.items()},
+                           cfg, device)
            for c in range(C)]
     return {k: torch.stack([p[k] for p in per]) for k in per[0]}
 
 
 def params_to_jax(params: Dict[str, torch.Tensor],
-                  cfg: CNNConfig) -> Dict[str, np.ndarray]:
-    """Inverse of ``params_from_jax``: numpy arrays in the JAX layout."""
+                  cfg: CNNConfig) -> Dict:
+    """Inverse of ``params_from_jax``: numpy arrays in the JAX layout (the
+    ResNet's nested)."""
     out = {}
     for k, t in params.items():
         v = t.detach().cpu().numpy()
-        if k in _CONVS:
+        if _is_conv(k, v, cfg):
             v = v.transpose(2, 3, 1, 0)                 # OIHW -> HWIO
         elif k == "fc1":
             h, w, c = _fc1_grid(cfg)
             v = v.reshape(c, h, w, -1).transpose(1, 2, 0, 3) \
                 .reshape(h * w * c, -1)
         out[k] = np.ascontiguousarray(v)
-    return out
+    return _nest(out)
 
 
 def _leaf_to_torch(a, dev) -> torch.Tensor:

@@ -3,7 +3,12 @@
 ``make_local_update`` returns a function that runs every available
 device's local update at once with ``torch.func.vmap`` over the device
 axis — the single-host simulation analogue of devices computing in
-parallel.
+parallel.  The forward and the input gradients run as one batch; each
+device's weight gradient is a group of a grouped convolution.  A loop
+over the devices (plain convolutions, one device after another) lost to
+it on the H100 on both vision models: ResNet18-GN's round core took
+363-390 ms against 129, the paper CNN's 57-62 against 9-11
+(``scripts/local_update_paths.py``, PERF.md).
 
 ``make_round_core`` fuses the client half of a round — local update
 (Eq. 1), per-device sigma estimation (Eq. 10), model deltas, their L2

@@ -670,7 +670,11 @@ class FederatedTrainer:
 
 
 def _cnn_features_logits(params, cfg: CNNConfig, images):
-    """Penultimate features + logits of the paper CNN (no dropout): the
-    Eq. 10 sigma inputs."""
-    feats = C.paper_cnn_features(params, cfg, images)
-    return feats, feats @ params["fc2"] + params["b2"]
+    """Penultimate features + logits of the paper CNN (no dropout) or
+    ResNet18-GN (the pooled [B, 512] features): the Eq. 10 sigma
+    inputs."""
+    if cfg.kind == "paper_cnn":
+        feats = C.paper_cnn_features(params, cfg, images)
+        return feats, feats @ params["fc2"] + params["b2"]
+    feats = C.resnet18_gn_features(params, cfg, images)
+    return feats, feats @ params["fc"] + params["fc_b"]

@@ -1,5 +1,6 @@
-"""Model registry: a uniform functional handle over the paper CNN and
-the LM architectures ported so far."""
+"""Model registry: a uniform functional handle over the paper's vision
+models (the CIFAR-10 CNN, ResNet18-GN) and the LM architectures ported
+so far."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,7 +19,7 @@ class Model:
     cfg: Any
     init: Callable             # (torch.Generator) -> params
     forward: Callable
-    # the paper CNN's (the LM's training is not ported yet)
+    # the vision models' (the LM's training is not ported yet)
     loss_fn: Optional[Callable] = None     # (params, batch, dropout=None)
     dropout_shapes: Optional[Callable] = None  # (batch_size) -> mask shapes
     # the LM's decode
@@ -32,16 +33,16 @@ class Model:
 
 def _cnn_model(cfg: CNNConfig) -> Model:
     def loss(params, batch, dropout=None):
-        logits = C.paper_cnn_forward(params, cfg, batch["images"], dropout)
+        logits = C.cnn_forward(params, cfg, batch["images"], dropout)
         ce = softmax_cross_entropy(logits, batch["labels"])
         acc = (logits.argmax(-1) == batch["labels"]).to(logits.dtype).mean()
         return ce, {"ce_loss": ce, "accuracy": acc}
 
     return Model(
         cfg=cfg,
-        init=lambda gen: C.init_paper_cnn(gen, cfg),      # on the CPU
+        init=lambda gen: C.init_cnn(gen, cfg),            # on the CPU
         loss_fn=loss,
-        forward=lambda params, batch, dropout=None: C.paper_cnn_forward(
+        forward=lambda params, batch, dropout=None: C.cnn_forward(
             params, cfg, batch["images"], dropout),
         dropout_shapes=lambda b: C.dropout_shapes(cfg, b),
     )
@@ -62,12 +63,12 @@ def _lm_model(cfg: ModelConfig) -> Model:
 
 
 def build_model(arch_or_cfg) -> Model:
-    """A CNNConfig (``kind="paper_cnn"``; ResNet18-GN is not ported yet),
-    a ModelConfig, or the name of a ported LM architecture -> Model."""
+    """A CNNConfig (``kind`` ``"paper_cnn"`` or ``"resnet18_gn"``), a
+    ModelConfig, or the name of a ported LM architecture -> Model."""
     if isinstance(arch_or_cfg, CNNConfig):
-        if arch_or_cfg.kind != "paper_cnn":
-            raise NotImplementedError(f"only the paper CNN is ported, got "
-                                      f"{arch_or_cfg!r}")
+        if arch_or_cfg.kind not in C.KINDS:
+            raise ValueError(f"unknown CNN kind {arch_or_cfg.kind!r}; "
+                             f"known: {C.KINDS}")
         return _cnn_model(arch_or_cfg)
     if isinstance(arch_or_cfg, ModelConfig):
         return _lm_model(arch_or_cfg)

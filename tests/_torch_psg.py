@@ -27,3 +27,22 @@ def sigma_f64(h, logits, labels):
     g = h.double()[..., :, :, None] * e[..., :, None, :]
     return torch.sqrt(((g - g.mean(-3, keepdim=True)) ** 2).sum((-2, -1))
                       .mean(-1))
+
+
+def psg_resnet_head(V, B, d, C, seed):
+    """Inputs shaped like ResNet18-GN's head on the FL round: pooled
+    post-ReLU features (non-negative, about 1 each), small logits (a
+    softmax near uniform over C classes), random labels.  numpy h [V, B,
+    d] and logits [V, B, C] in f32, labels [V, B] int64."""
+    rng = np.random.default_rng(seed)
+    return (np.abs(rng.normal(size=(V, B, d))).astype(np.float32),
+            (0.3 * rng.normal(size=(V, B, C))).astype(np.float32),
+            rng.integers(0, C, (V, B)))
+
+
+def round_tolerance(h, truth):
+    """What the FL round holds the kernel's sigma [...] to against Eq. 10
+    in f64 (``truth``), as ``chip_smoke.sigma_tolerance``: 2e-6 of it
+    plus 1e-6 of the device's rms ||h_i|| (h [..., B, d])."""
+    return 2e-6 * truth + 1e-6 * torch.sqrt(
+        (h.double() ** 2).sum(-1).mean(-1))

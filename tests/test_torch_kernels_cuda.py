@@ -9,7 +9,8 @@ GPU host that has only PyTorch:
 import numpy as np
 import pytest
 import torch
-from _torch_psg import psg_aligned, sigma_f64
+from _torch_psg import (psg_aligned, psg_resnet_head, round_tolerance,
+                        sigma_f64)
 
 from repro_torch.kernels import ref as tref
 
@@ -46,9 +47,15 @@ def cuda():
     return torch.device("cuda")
 
 
+# the ResNet18-GN rounds' 100 classes: one cell at V = 64, 8 problems of
+# an 8-cell GS solve, the 32 lanes of an FSCD solve
+RESNET_WEMD_SHAPES = [(1, 64, 100), (8, 27, 100), (32, 23, 100)]
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,V,C", SWAP_SHAPES + [(32, 19, 10), (2, 300, 10),
-                                                 (40, 28, 10)])
+                                                 (40, 28, 10)]
+                         + RESNET_WEMD_SHAPES)
 def test_wemd_swap_kernel_on_card(cuda, B, V, C):
     from repro_torch.kernels.wemd_swap import wemd_swap_cuda
     args = to_torch(wemd_inputs(B, V, C, min(5, V), seed=V), cuda)
@@ -60,7 +67,8 @@ def test_wemd_swap_kernel_on_card(cuda, B, V, C):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,V,C", ADD_SHAPES + [(1, 19, 10), (2, 300, 10),
-                                                (8, 28, 10)])
+                                                (8, 28, 10)]
+                         + RESNET_WEMD_SHAPES)
 def test_wemd_add_kernel_on_card(cuda, B, V, C):
     from repro_torch.kernels.wemd_swap import wemd_add_cuda
     args = to_torch(wemd_inputs(B, V, C, min(3, V), seed=V), cuda)
@@ -79,7 +87,8 @@ def wemd_kernel(kind):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kind", ["add", "swap"])
 @pytest.mark.parametrize("B,V,C", [(2, 16, 10), (32, 23, 10), (2, 33, 100),
-                                   (1, 130, 130), (2, 300, 10)])
+                                   (1, 130, 130), (2, 300, 10)]
+                         + RESNET_WEMD_SHAPES)
 def test_wemd_kernel_f64_inputs_on_card(cuda, kind, B, V, C):
     """The scheduler's f64 state goes into the kernel as it is: the output
     is bitwise the kernel's on the f32-cast inputs, and within 1e-5 of the
@@ -136,7 +145,9 @@ def test_persample_gradnorm_kernel_on_card(cuda, B, d, C):
 # classes (7 blocks of 16); (100, 512, 100): h in two column tiles
 PSG_BATCHED_CASES = [(23, 32, 120, 10), (3, 33, 37, 10), (2, 32, 120, 100),
                      (2, 100, 512, 100),
-                     (200, 32, 120, 10)]     # one 8-cell round's launch
+                     (200, 32, 120, 10),     # one 8-cell round's launch
+                     # ResNet18-GN: one cell, and 8 cells in one launch
+                     (19, 32, 512, 100), (152, 32, 512, 100)]
 
 
 def psg_batched(V, B, d, C, seed, device):
@@ -169,7 +180,9 @@ def test_persample_gradnorm_kernel_labels_on_card(cuda, V, B, d, C):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("V,B,d,C", [(8, 32, 120, 10), (2, 100, 512, 100)])
+@pytest.mark.parametrize("V,B,d,C", [(8, 32, 120, 10), (2, 100, 512, 100),
+                                     (19, 32, 512, 100),
+                                     (152, 32, 512, 100)])
 def test_persample_gradnorm_kernel_aligned_gradients_on_card(cuda, V, B, d,
                                                              C):
     """Where the per-sample gradients nearly agree (mean ||g_i||^2 /
@@ -184,6 +197,24 @@ def test_persample_gradnorm_kernel_aligned_gradients_on_card(cuda, V, B, d,
     torch.cuda.synchronize()
     torch.testing.assert_close(s.double(), sigma_f64(h, logits, labels),
                                atol=0, rtol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("V", [19, 152])
+def test_persample_gradnorm_kernel_resnet_head_on_card(cuda, V):
+    """At ResNet18-GN's head (d = 512, C = 100; one cell, and 8 cells in
+    one launch) sigma holds the FL round's tolerance against Eq. 10 in
+    f64, with a tenth of it to spare (an f32 total of the deviations'
+    6400 squares a thread did not: tests/test_torch_kernels_ref.py::
+    test_sigma_f64_total_needed_at_resnet_head)."""
+    from repro_torch.kernels.persample_gradnorm import (
+        persample_gradnorm_cuda_batched)
+    h, logits, labels = to_torch(psg_resnet_head(V, 32, 512, 100, V), cuda)
+    s, _ = persample_gradnorm_cuda_batched(h, logits, labels)
+    torch.cuda.synchronize()
+    truth = sigma_f64(h, logits, labels)
+    err = (s.double() - truth).abs()
+    assert bool((err <= 0.1 * round_tolerance(h, truth)).all())
 
 
 @pytest.mark.requires_cuda

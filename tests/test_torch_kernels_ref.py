@@ -7,7 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_psg import psg_aligned, sigma_f64
+from _torch_psg import (psg_aligned, psg_resnet_head, round_tolerance,
+                        sigma_f64)
 
 from repro.kernels import ref as jref
 from repro.kernels.persample_gradnorm import persample_gradnorm_pallas
@@ -153,6 +154,55 @@ def test_sigma_two_pass_needed(kt):
         two = float(psg_tiled(h, lg, y, kt)[0])
         assert abs(two - truth) <= 1e-5 * truth
     assert max(one_err) > 1e-3
+
+
+def psg_thread_order(h, logits, labels, f64_total):
+    """The deviations' sum of ``csrc/persample_gradnorm.cu`` in its order,
+    in numpy f32, one device with all of h in one tile: thread t of 256
+    owns columns t, t + 256, ..; for each 16-class chunk it walks the
+    rows and adds the squares (h_ik e_ic - gbar_kc)^2.  ``f64_total``:
+    a row's chunk summed in f32, added to an f64 total (the kernel);
+    else every square added to an f32 total."""
+    f32 = np.float32
+    B, d = h.shape
+    C = logits.shape[1]
+    z = np.exp(logits - logits.max(1, keepdims=True)).astype(f32)
+    e = (z / z.sum(1, keepdims=True)).astype(f32)
+    e[np.arange(B), labels] -= f32(1)
+    ng = -(h.T @ e).astype(f32) * f32(1.0 / B)
+    total = np.zeros(256, np.float64 if f64_total else f32)
+    for k0 in range(0, d, 256):
+        ks = np.arange(k0, min(k0 + 256, d))
+        for c0 in range(0, C, 16):
+            for i in range(B):
+                row = np.zeros(len(ks), f32)
+                for c in range(c0, min(c0 + 16, C)):
+                    x = h[i, ks] * e[i, c] + ng[ks, c]
+                    if f64_total:
+                        row = row + x * x
+                    else:
+                        total[ks - k0] = total[ks - k0] + x * x
+                if f64_total:
+                    total[ks - k0] += row
+    return np.sqrt(total.astype(np.float64).sum() / B)
+
+
+def test_sigma_f64_total_needed_at_resnet_head():
+    """Why the kernel keeps the deviations' sum in f64: at ResNet18-GN's
+    head (d = 512, C = 100) a thread adds 6400 squares, and an f32 total
+    of them strays toward the FL round's tolerance against Eq. 10 in f64
+    (over it on the card's first ResNet round); f32 sums of a row's 16
+    classes added to an f64 total stay far under it."""
+    f32_share, f64_share = [], []
+    for seed in range(3):
+        h, lg, y = (x[0] for x in psg_resnet_head(1, 32, 512, 100, seed))
+        truth = sigma_f64(*to_torch([h, lg, y]))
+        tol = float(round_tolerance(torch.from_numpy(h), truth))
+        for out, f64_total in ((f32_share, False), (f64_share, True)):
+            got = psg_thread_order(h, lg, y, f64_total)
+            out.append(abs(got - float(truth)) / tol)
+    assert max(f32_share) > 0.3
+    assert max(f64_share) < 0.03
 
 
 @pytest.mark.parametrize("B,d,C", PSG_SHAPES + [(32, 120, 10), (33, 37, 10),
