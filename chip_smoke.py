@@ -6,10 +6,11 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
   1. builds the port's kernels from the sources in this checkout: the
-     five CUDA C++ sources (``wemd``, ``persample_gradnorm``,
-     ``flash_attention``, ``wkv``, ``rglru_scan``) with one nvcc each,
-     all at once; prints ptxas's registers, spills and warnings for the
-     kernels of every source;
+     six CUDA C++ sources (``wemd``, ``persample_gradnorm``,
+     ``flash_attention``, ``flash_attention_bwd``, ``wkv``,
+     ``rglru_scan``, which also holds the RG-LRU backward) with one nvcc
+     each, all at once; prints ptxas's registers, spills and warnings for
+     the kernels of every source;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5 on f32 and on f64 inputs, the f64
@@ -26,7 +27,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      tiles, and V = 0 launching nothing; the WEMD kernels also at 100
      classes, (1, 64, 100), (8, 27, 100), (32, 23, 100), and
      persample_gradnorm at the ResNet's d = 512, C = 100 for V = 19 and
-     152, aligned gradients included);
+     152, aligned gradients included); the backward kernels against
+     autograd of the plain attention (f32 at 3e-5 / 1e-4, bf16 at one
+     bf16 step; GQA groups of 1, 2 and 10, a window, T > S, the train
+     step's shape) and the written-out reverse RG-LRU recurrence (1e-5;
+     da, which is g h_{t-1}, at 1e-5 x max(1, max |h|); a = 1 and
+     0.9999), each twice, bitwise equal;
   3. solves 100 seeded random P1 problems with the torch scheduler on the
      card (25 at each of V = 16 and 64 for C = 10 and C = 100) and
      requires the numpy solvers' masks and iteration counts;
@@ -70,14 +76,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      tokens (longer than the 2048 window), 32 sampled tokens.  Prefill
      must launch the attention kernel 8 times and the RG-LRU kernel 18
      times (recurrentgemma), the WKV kernel 32 times (rwkv6), and decode
-     no kernel; logits must be finite; and a prefill of P tokens plus 8
-     teacher-forced ``serve_step``s (the plain decode route) must agree
-     with one prefill of P+8 tokens (the kernel route), in f32 on each
+     no kernel; logits must be finite; the prefill step
+     (``fl.distributed.make_prefill_step``: the head on the last position
+     only) must give the full forward's last-position logits within
+     ``HEAD_TOL`` x scale; and the prefill step of P tokens plus 8
+     teacher-forced decode steps (the plain decode route) must agree
+     with one forward of P+8 tokens (the kernel route), in f32 on each
      reduced config (2e-3 * scale, the bound of the JAX package's
      tests/test_models_smoke.py) and in bf16 on the full ones and on
      their first layers (``BF16_CONSISTENCY``, ``LM_DEPTHS``);
-  8. times each kernel at the shapes of its last main-path launch (the
-     LM kernels at their prefill shapes; K1-K3 also at their 8-cell
+  8. trains recurrentgemma-2b at published width and depth (bf16, each
+     layer rematerialised) through ``launch.federated_lm_silos.run``:
+     FedCGD over 8 silos of 2 sequences of 256 tokens, 3 rounds of one
+     schedule-weighted train step (the chunked CE: 256 x 256000 >
+     2**24); every round's loss and grad norm finite, the attention and
+     RG-LRU kernels launched 16 and 36 times a round (the forward and its
+     recompute) and their backward kernels 8 and 18 times, nothing else;
+     a second run on the same seed bitwise equal (metrics, masks,
+     params); one plain ``make_train_step`` step, and one under the
+     profiler; peak memory logged.  Before it: the reduced f32 step on
+     the card against the same step on the CPU (loss within 1e-5
+     relative, params within 1e-4 in L2 a leaf), and rwkv6-3b's step on
+     the card raising (the WKV kernel has no backward yet);
+  9. times each kernel at the shapes of its last main-path launch (the
+     LM kernels at their prefill shapes, the backward kernels at the
+     train step's, SDPA's backward alone as attention's yardstick;
+     K1-K3 also at their 8-cell
      shapes, rows ``<name>@C8``, K1/K2 at the ResNet rounds' 100
      classes, rows ``<name>@C100``, and K3 at the ResNet's single-cell
      and 8-cell shapes, rows ``persample_gradnorm@R`` and ``@Rx8``)
@@ -135,11 +159,16 @@ TPU_KERNELS = {
     "attention": "src/repro/kernels/flash_attention.py:77",
     "wkv": "src/repro/kernels/rwkv_scan.py:75",
     "rglru": "src/repro/kernels/rglru_scan.py:50",
+    # the backward kernels: the JAX package differentiates its plain
+    # model and has no backward kernel, so each names the TPU kernel whose
+    # function it differentiates
+    "attention_bwd": "src/repro/kernels/flash_attention.py:77",
+    "rglru_bwd": "src/repro/kernels/rglru_scan.py:50",
 }
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
 # the kernels' symbols in a profiler trace
 PORT_KERNEL_SYMBOLS = ("wemd_", "psg_kernel", "flash_", "wkv_chunked",
-                       "rglru_scan")
+                       "rglru_scan", "attn_bwd_")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("cuda", CSRC + "wemd.cu"),
@@ -148,6 +177,8 @@ SOURCES = {
     "attention": ("cuda", CSRC + "flash_attention.cu"),
     "wkv": ("cuda", CSRC + "wkv.cu"),
     "rglru": ("cuda", CSRC + "rglru_scan.cu"),
+    "attention_bwd": ("cuda", CSRC + "flash_attention_bwd.cu"),
+    "rglru_bwd": ("cuda", CSRC + "rglru_scan.cu"),
 }
 # LM serving phase: batch, prompt (> the 2048 window), sampled tokens,
 # teacher-forced decode steps of the consistency check
@@ -170,6 +201,10 @@ BF16_CONSISTENCY = {"recurrentgemma-2b": (0.01, 0.035),
 LM_DEPTHS = {"recurrentgemma-2b": (3, 6, 12, 24),
              "rwkv6-3b": (1, 2, 4, 8, 16)}
 F32_CONSISTENCY = 2e-3          # tests/test_models_smoke.py's bound
+# the prefill step's last-position logits vs the full forward's: one trunk,
+# the f32 head GEMM at M = B rows against M = B S (tests/test_torch_lm.py's
+# f32 logit tolerance)
+HEAD_TOL = 1e-4
 # bf16 attention against its f32-accumulated plain version: both round
 # the same f32 value to bf16 once, so they differ by at most one bf16
 # step (< 2**-7 relative) plus f32 noise
@@ -320,7 +355,20 @@ def bound(name, shapes, itemsize=4):
     written once over HBM, operations over the peak rate of their type
     (the f32 rate, and bf16 tensor cores for bf16 attention)."""
     rate = F32_FLOPS_PER_S
-    if name == "attention":
+    if name == "attention_bwd":
+        # reads q, k, v, dO, writes dq, dk, dv; s, dP, dq, dk and dv take
+        # 2 hd FLOPs each a visible pair
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
+        nbytes = itemsize * (3 * B * H * S * hd + 4 * B * KV * T * hd)
+        ops = 10 * hd * B * H * visible_pairs(S, T, causal, window)
+        rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+    elif name == "rglru_bwd":
+        # reads a, h, dh [B,T,D] and h0, dh_T [B,D], writes da, db and dh0;
+        # an FMA for g and a product for da an element
+        (B, T, D), = shapes
+        nbytes = 4 * (5 * B * T * D + 3 * B * D)
+        ops = 3 * B * T * D
+    elif name == "attention":
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
         nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
         ops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
@@ -434,12 +482,13 @@ def phase_build(torch, dev):
     from repro_torch.kernels import rwkv_scan as K5
     from repro_torch.kernels import wemd_swap as K12
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:     # one nvcc per source, at once
+    with ThreadPoolExecutor(6) as pool:     # one nvcc per source, at once
         for f in [pool.submit(fn) for fn in (K12._launchers, K3._launcher,
-                                             K4._launcher, K5._launcher,
-                                             K6._launcher)]:
+                                             K4._launcher, K4._bwd_launcher,
+                                             K5._launcher, K6._launcher)]:
             f.result()
-    log(f"build: nvcc of 5 sources in parallel "
+    K6._bwd_launcher()                      # rglru_scan.cu's second entry
+    log(f"build: nvcc of 6 sources in parallel "
         f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
             f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items()) + ")")
     log("ptxas, wemd.cu: " + ptxas_summary(
@@ -451,7 +500,8 @@ def phase_build(torch, dev):
             f"{route} hd{hd} {lib.flash_attention_smem_bytes(hd, dt)} B"
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
-    for src in ("wkv.cu", "rglru_scan.cu", "persample_gradnorm.cu"):
+    for src in ("flash_attention_bwd.cu", "wkv.cu", "rglru_scan.cu",
+                "persample_gradnorm.cu"):
         log(f"ptxas, {src}: "
             + ptxas_summary(common.BUILD_LOGS.get(src, "")))
 
@@ -469,7 +519,9 @@ def ptxas_summary(text: str) -> str:
             m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
             w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
             c = re.search(r"wkv_chunkedILi(\d+)E", line)
-            r = re.search(r"rglru_scanILb([01])E", line)
+            r = re.search(r"rglru_scan(_bwd)?ILb([01])E", line)
+            a = re.search(r"attn_bwd_(dq|dkv)I(f|13__nv_bfloat16)Li(\d+)E",
+                          line)
             p = re.search(r"psg_kernelI([xi])Lb([01])E", line)
             if m:
                 name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
@@ -479,7 +531,11 @@ def ptxas_summary(text: str) -> str:
             elif c:
                 name = f"wkv hd{c[1]}"
             elif r:
-                name = f"rglru {'16-byte' if r[1] == '1' else '4-byte'} rows"
+                name = (f"rglru{' bwd' if r[1] else ''} "
+                        f"{'16-byte' if r[2] == '1' else '4-byte'} rows")
+            elif a:
+                name = (f"attention bwd {a[1]} "
+                        f"{'f32' if a[2] == 'f' else 'bf16'} hd{a[3]}")
             elif p:
                 name = (f"psg int{64 if p[1] == 'x' else 32} labels, "
                         f"{'16-byte' if p[2] == '1' else '4-byte'} h")
@@ -631,6 +687,59 @@ def lm_kernel_checks(torch, dev, close):
                   *BF16_ATTN_TOL)
     wkv_checks(torch, dev, close)
     rglru_checks(torch, dev, close)
+    bwd_checks(torch, dev, close)
+
+
+def bwd_checks(torch, dev, close):
+    """The backward kernels against their plain versions: attention's dq,
+    dk, dv (f32 at the forward's 3e-5 / 1e-4, bf16 at one bf16 step) over
+    GQA groups of 1, 2 and 10, a window, T > S and the train step's
+    [16, 10, 256, 256]; RG-LRU's da, db, dh0 within 1e-5 (da within 1e-5
+    times max(1, max |h|): it is g h_{t-1}) at the sweep, T = 1, T = 257,
+    D = 37 and a = 1 and 0.9999; a second call of each bitwise equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+    f32, bf16 = torch.float32, torch.bfloat16
+    for i, (B, H, KV, S, T, hd, causal, window, dt) in enumerate([
+            (2, 3, 3, 128, 128, 64, True, 0, f32),
+            (1, 4, 2, 100, 300, 128, True, 0, f32),
+            (2, 10, 1, 300, 300, 256, True, 64, f32),
+            (1, 2, 2, 257, 257, 32, False, 0, f32),
+            (2, 10, 1, 300, 300, 256, True, 100, bf16),
+            (16, 10, 1, 256, 256, 256, True, 2048, bf16)]):
+        q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dt, 400 + i, dev)
+        do = attn_inputs(torch, B, H, KV, S, T, hd, dt, 500 + i, dev)[0]
+        got = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                       window=window)
+        want = ref.attention_bwd_ref(q, k, v, do, causal=causal,
+                                     window=window)
+        again = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                         window=window)
+        for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+            require(g.dtype == dt and torch.equal(g, g2),
+                    f"attention bwd {name}: dtype, or two calls differ")
+            if dt == f32:
+                close("attention_bwd", g, w, *F32_ATTN_TOL)
+            else:
+                close("attention_bwd.bf16", g.float(), w.float(),
+                      *BF16_ATTN_TOL)
+    for i, (B, T, D, a_val) in enumerate([
+            (2, 300, 64, None), (3, 37, 100, None), (2, 1, 64, None),
+            (2, 257, 37, None), (16, 256, 2560, None), (2, 100, 64, 1.0),
+            (2, 100, 37, 0.9999)]):
+        a, b, h0 = rglru_inputs(torch, B, T, D, 600 + i, dev, a_val)
+        h, _ = ref.rglru_ref(a, b, h0)
+        dh, dT = (torch.randn_like(x) for x in (h, h0))
+        got = rglru_bwd_cuda(a, h, h0, dh, dT)
+        want = ref.rglru_bwd_ref(a, h, h0, dh, dT)
+        require(all(torch.equal(x, y) for x, y in
+                    zip(got, rglru_bwd_cuda(a, h, h0, dh, dT))),
+                f"rglru bwd at {(B, T, D)}: two calls differ")
+        atol = 1e-5 * max(1.0, float(h.abs().max()))
+        close("rglru_bwd.da", got[0], want[0], atol, 1e-5)
+        close("rglru_bwd", got[1], want[1], 1e-5, 1e-5)
+        close("rglru_bwd", got[2], want[2], 1e-5, 1e-5)
 
 
 def rglru_checks(torch, dev, close):
@@ -1291,33 +1400,47 @@ def check_one_cell(torch, world):
 
 
 def lm_consistency(torch, model, params, prompts, P, C):
-    """Prefill of P tokens plus C teacher-forced ``serve_step``s (the
-    plain decode route) against one prefill of P+C tokens (the kernel
-    route) at those positions.  Returns (max abs error over max(1,
-    max |logit|), relative L2 error, warm prefill ms, max(1, max
-    |logit|))."""
+    """The prefill step of P tokens (the head on the last position only)
+    plus C teacher-forced decode steps (the plain decode route) against
+    one forward of P+C tokens (the kernel route) at those positions; and
+    the prefill step's logits against the full forward's last position
+    over the P tokens, within ``HEAD_TOL`` x max(1, max |logit|) (the
+    same trunk, so only the head's GEMM differs: cuBLAS may pick another
+    algorithm at M = B).  Returns (max abs error over max(1, max
+    |logit|), relative L2 error, warm prefill ms, max(1, max |logit|),
+    the last position's error over its scale)."""
+    from repro_torch.fl.distributed import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(model.cfg, cache_len=P + C + 8)
+    serve = make_serve_step(model.cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, _, cache = model.forward(params, {"tokens": prompts[:, :P]},
-                                     collect_cache=True, cache_len=P + C + 8)
+    last, cache = prefill(params, {"tokens": prompts[:, :P]})
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
-    require(bool(torch.isfinite(logits).all()), "prefill logits not finite")
-    del logits
+    require(bool(torch.isfinite(last).all()), "prefill logits not finite")
+    with torch.no_grad():
+        full = model.forward(params, {"tokens": prompts[:, :P]})[0][:, -1]
+    head_scale = max(1.0, float(full.abs().max()))
+    head_err = float((last[:, 0] - full).abs().max()) / head_scale
+    require(head_err <= HEAD_TOL, f"{model.cfg.name}: the prefill step's "
+            f"last-position logits are {head_err:.3g} x scale off the full "
+            f"forward's")
+    del full
     dec = []
     for i in range(C):
-        step, cache = model.serve_step(params, cache,
-                                       {"tokens": prompts[:, P + i:P + i + 1]})
+        step, cache = serve(params, cache,
+                            {"tokens": prompts[:, P + i:P + i + 1]})
         dec.append(step[:, 0])
     dec = torch.stack(dec, dim=1)
-    full, _, _ = model.forward(params, {"tokens": prompts[:, :P + C]})
+    with torch.no_grad():
+        full, _, _ = model.forward(params, {"tokens": prompts[:, :P + C]})
     require(bool(torch.isfinite(full).all()), "prefill logits not finite")
     want = full[:, P:P + C].clone()
     del full, cache
     scale = max(1.0, float(want.abs().max()))
     err = float((dec - want).abs().max()) / scale
     rel = float((dec - want).norm() / want.norm())
-    return err, rel, prefill_ms, scale
+    return err, rel, prefill_ms, scale, head_err
 
 
 def phase_lm(torch, dev, prof_ok):
@@ -1339,10 +1462,11 @@ def phase_lm(torch, dev, prof_ok):
         params = model.init(gen)
         prompts = torch.randint(0, cfg.vocab_size, (2, 108), generator=gen,
                                 device=dev)
-        err, rel, _, _ = lm_consistency(torch, model, params, prompts, 100,
-                                        8)
+        err, rel, _, _, head_err = lm_consistency(torch, model, params,
+                                                  prompts, 100, 8)
         log(f"{cfg.name} f32 prefill(100)+8 steps vs prefill(108): max err"
-            f" {err:.3g} x scale, rel L2 {rel:.3g}")
+            f" {err:.3g} x scale, rel L2 {rel:.3g}; prefill step's last "
+            f"position vs the full forward's {head_err:.3g} x scale")
         require(err <= F32_CONSISTENCY,
                 f"{cfg.name}: decode disagrees with prefill")
 
@@ -1379,9 +1503,12 @@ def phase_lm(torch, dev, prof_ok):
         launches.update(got)
         shapes.update(common.LAST_SHAPES)
         bounds = BF16_CONSISTENCY[arch]
-        err, rel, warm_ms, scale = lm_consistency(
+        err, rel, warm_ms, scale, head_err = lm_consistency(
             torch, model, params, prompts, LM_PROMPT, LM_CHECK)
-        log(f"{arch}: warm prefill {LM_BATCH}x{LM_PROMPT} {warm_ms:.2f} ms; "
+        log(f"{arch}: warm prefill step {LM_BATCH}x{LM_PROMPT} "
+            f"{warm_ms:.2f} ms (the head on the last position; its logits "
+            f"{head_err:.3g} x scale off the full forward's, bound "
+            f"{HEAD_TOL}); "
             f"bf16 prefill({LM_PROMPT})+{LM_CHECK} steps vs prefill("
             f"{LM_PROMPT + LM_CHECK}): max err {err:.4g} x scale, rel L2 "
             f"{rel:.4g} (bounds {bounds}, max |logit| {scale:.4g});"
@@ -1392,8 +1519,9 @@ def phase_lm(torch, dev, prof_ok):
         gaps = []
         for depth in LM_DEPTHS[arch]:
             sub, sub_params = first_layers(cfg, params, depth)
-            e, r, _, sc = lm_consistency(torch, build_model(sub), sub_params,
-                                         prompts, LM_PROMPT, LM_CHECK)
+            e, r, _, sc, _ = lm_consistency(torch, build_model(sub),
+                                            sub_params, prompts, LM_PROMPT,
+                                            LM_CHECK)
             gaps.append(f"{depth} layers {e:.4g} / {r:.4g} (max |logit| "
                         f"{sc:.4g})")
             require(e <= bounds[0] and r <= bounds[1],
@@ -1410,17 +1538,188 @@ def phase_lm(torch, dev, prof_ok):
 
 
 def profile_serving(torch, model, params, prompt, arch):
-    """One warm prefill and one warm decode step under the profiler."""
+    """One warm prefill step and one warm decode step under the
+    profiler."""
+    from repro_torch.fl.distributed import make_prefill_step, make_serve_step
+    prefill_step = make_prefill_step(model.cfg, prompt.shape[1] + 8)
+    serve = make_serve_step(model.cfg)
+
     def prefill():
-        logits, _, cache = model.forward(params, {"tokens": prompt},
-                                         collect_cache=True,
-                                         cache_len=prompt.shape[1] + 8)
+        logits, cache = prefill_step(params, {"tokens": prompt})
         return logits[:, -1].argmax(-1)[:, None], cache
 
     tok, cache = profiled(torch, f"{arch} profiled prefill", prefill, top=8)
-    model.serve_step(params, cache, {"tokens": tok})     # warm-up
+    serve(params, cache, {"tokens": tok})     # warm-up
     profiled(torch, f"{arch} profiled decode step",
-             lambda: model.serve_step(params, cache, {"tokens": tok}))
+             lambda: serve(params, cache, {"tokens": tok}))
+
+
+# LM training phase: recurrentgemma-2b at published width and depth (bf16,
+# remat), FedCGD over 8 silos of 2 sequences of 256 tokens (4096 tokens a
+# round, S x vocab = 65.5 M > 2**24: the chunked CE), 3 rounds
+TRAIN_ARCH = "recurrentgemma-2b"
+TRAIN_SILOS, TRAIN_PER_SILO, TRAIN_SEQ, TRAIN_ROUNDS = 8, 2, 256, 3
+# launches a train step: with remat every layer's forward runs again in
+# the backward, so the forward kernels launch twice
+TRAIN_STEP_LAUNCHES = {"attention": 16, "attention_bwd": 8, "rglru": 36,
+                       "rglru_bwd": 18}
+TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4   # card vs CPU, f32
+
+
+def _rel_l2(torch, got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def train_card_vs_cpu(torch, dev):
+    """The reduced f32 recurrentgemma-2b step on the card (K4, K6 and
+    their backward kernels) against the same step on the CPU (the plain
+    versions): the loss within 1e-5 relative, every new param within 1e-4
+    relative in L2."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config(TRAIN_ARCH).reduced()
+    params = T.init(torch.Generator().manual_seed(1), cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 41)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(cfg, eta=0.1)
+    want, wm = step(params, batch)
+    got, gm = step(_to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+    loss_err = abs(float(gm["loss"]) - float(wm["loss"])) / abs(
+        float(wm["loss"]))
+    worst = max((_rel_l2(torch, a, b), k) for (k, a), (_, b)
+                in zip(_paths(got), _paths(want)))
+    log(f"{cfg.name} train step, card vs CPU: loss {float(gm['loss']):.6f} "
+        f"vs {float(wm['loss']):.6f} ({loss_err:.3g} relative), worst "
+        f"param {worst[1]} {worst[0]:.3g} relative L2")
+    require(loss_err <= TRAIN_LOSS_RTOL and worst[0] <= TRAIN_PARAM_RTOL,
+            f"{cfg.name}: the card's train step disagrees with the CPU's")
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a nested dict in sorted key order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _paths(tree[k], f"{prefix}{k}/")
+        else:
+            yield prefix + k, tree[k]
+
+
+def rwkv_refuses(torch, dev):
+    """rwkv6-3b's train step on the card raises NotImplementedError (the
+    WKV kernel has no backward yet) instead of dropping its gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_train_step
+    from repro_torch.models import transformer as T
+    cfg = get_config("rwkv6-3b").reduced()
+    params = T.init(torch.Generator(device=dev).manual_seed(2), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=dev)
+    try:
+        make_train_step(cfg)(params, {"tokens": toks[:, :-1],
+                                      "targets": toks[:, 1:]})
+    except NotImplementedError as e:
+        require("wkv" in str(e), f"rwkv6-3b raised another error: {e}")
+        log(f"{cfg.name} train step on the card raises: {e}")
+        return
+    raise AssertionError("rwkv6-3b trained on the card without a WKV "
+                         "backward")
+
+
+def phase_lm_train(torch, dev, prof_ok):
+    """FedCGD over LM silos on recurrentgemma-2b at full width and depth
+    through ``launch.federated_lm_silos.run``: 3 rounds of one
+    schedule-weighted train step each, every round's loss and grad norm
+    finite, K4 / K6 and their backward kernels launched
+    ``TRAIN_STEP_LAUNCHES`` times a round and nothing else; a second run
+    on the same seed bitwise equal (metrics, masks, params); then one
+    plain ``make_train_step`` step, and one under the profiler; first the
+    card / CPU check of the reduced step and rwkv6-3b's refusal.  Returns
+    the run's launches and kernel shapes."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_train_step
+    from repro_torch.kernels import common
+    from repro_torch.launch import federated_lm_silos
+    from repro_torch.models import transformer as T
+    train_card_vs_cpu(torch, dev)
+    rwkv_refuses(torch, dev)
+    cfg = get_config(TRAIN_ARCH)
+    require(cfg.remat and cfg.param_dtype == "bfloat16"
+            and TRAIN_SEQ * cfg.vocab_size > 1 << 24,
+            f"{cfg.name}: not the bf16 remat config with the chunked CE")
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        stamps = []
+
+        def stamp(msg):                 # after float(loss): synchronised
+            stamps.append(time.perf_counter())
+            log(f"  {msg}")
+        params = T.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        common.reset_launches()
+        params, hist = federated_lm_silos.run(
+            cfg, rounds=TRAIN_ROUNDS, silos=TRAIN_SILOS,
+            per_silo_batch=TRAIN_PER_SILO, seq=TRAIN_SEQ, device=dev,
+            params=params, log=stamp, log_every=1)
+        launches = dict(common.LAUNCHES)
+        ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+        return params, hist, launches, dict(common.LAST_SHAPES), ms
+
+    params, hist, launches, shapes, ms = run()
+    want = {k: v * TRAIN_ROUNDS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    n_params = sum(x.numel() for _, x in _paths(params))
+    log(f"{cfg.name} FedCGD over {TRAIN_SILOS} silos x {TRAIN_PER_SILO} x "
+        f"{TRAIN_SEQ} tokens, {n_params / 1e9:.3f} B params (bf16, remat): "
+        f"rounds " + ", ".join(
+            f"{m:.2f} ms (loss {float(h['metrics']['loss']):.4f}, grad norm "
+            f"{float(h['metrics']['grad_norm']):.4f}, {h['scheduled']}/"
+            f"{TRAIN_SILOS} scheduled)" for m, h in zip(ms, hist))
+        + f"; launches {launches}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(launches == want, f"{cfg.name}: launches {launches}, want {want}")
+    require(all(bool(torch.isfinite(h["metrics"][k]))
+                for h in hist for k in ("loss", "grad_norm")),
+            f"{cfg.name}: a round's loss or grad norm is not finite")
+    twin, thist, _, _, tms = run()
+    same = all(torch.equal(a, b) for (_, a), (_, b)
+               in zip(_paths(params), _paths(twin)))
+    same &= all(torch.equal(h["metrics"][k], g["metrics"][k])
+                and (h["mask"] == g["mask"]).all()
+                for h, g in zip(hist, thist) for k in h["metrics"])
+    log(f"{cfg.name} second run on the same seed: rounds "
+        + ", ".join(f"{m:.2f} ms" for m in tms)
+        + f"; bitwise equal: {same}")
+    require(same, f"{cfg.name}: two runs on one seed differ")
+    del twin
+    ds, _, _ = federated_lm_silos.silo_world(cfg, TRAIN_SILOS, TRAIN_SEQ, 8)
+    toks = torch.from_numpy(ds.inputs[:TRAIN_SILOS * TRAIN_PER_SILO]).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(cfg, eta=0.05)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, met = step(params, batch)
+    torch.cuda.synchronize()
+    log(f"{cfg.name} plain train step: {1e3 * (time.perf_counter() - t0):.2f}"
+        f" ms, loss {float(met['loss']):.4f}, grad norm "
+        f"{float(met['grad_norm']):.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(bool(torch.isfinite(met["loss"]) and torch.isfinite(
+        met["grad_norm"])), f"{cfg.name}: the plain step is not finite")
+    del new
+    if prof_ok:
+        profiled(torch, f"{cfg.name} profiled train step",
+                 lambda: step(params, batch), top=10)
+    return launches, shapes
 
 
 def first_layers(cfg, params, depth):
@@ -1453,7 +1752,9 @@ def timing_case(torch, dev, name, shp):
     """(kernel call, plain call, library call or None, tolerance, bytes
     per element) for one kernel at shapes ``shp``.  For attention the
     library call (bf16 tensor cores, bf16 probabilities) is held to the
-    plain version at the sweep's 3e-2 only."""
+    plain version at the sweep's 3e-2 only.  A backward kernel's calls
+    return a tuple of gradients, and its tolerance is one (atol, rtol) a
+    gradient."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1463,6 +1764,43 @@ def timing_case(torch, dev, name, shp):
     from repro_torch.kernels.rglru_scan import rglru_cuda
     from repro_torch.kernels.rwkv_scan import wkv_cuda
     from repro_torch.kernels.wemd_swap import wemd_add_cuda, wemd_swap_cuda
+    if name == "attention_bwd":    # at the model's dtype, bf16
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_bwd_cuda)
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 96,
+                              dev)
+        do = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 97,
+                         dev)[0]
+        # the library yardstick: SDPA's backward alone (its forward is run
+        # once, outside the timed call), over the key heads repeated to
+        # the query heads
+        leaves = [x.detach().requires_grad_(True) for x in
+                  (q, *(y.repeat_interleave(H // KV, dim=1) for y in (k, v)))]
+        with torch.enable_grad():
+            out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=window_mask(torch, S, T, causal, window,
+                                               dev))
+        return (lambda: flash_attention_bwd_cuda(q, k, v, do,
+                                                 causal=bool(causal),
+                                                 window=window),
+                lambda: ref.attention_bwd_ref(q, k, v, do,
+                                              causal=bool(causal),
+                                              window=window),
+                lambda: torch.autograd.grad(out, leaves, do,
+                                            retain_graph=True),
+                [BF16_ATTN_TOL] * 3, 2)
+    if name == "rglru_bwd":
+        from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+        (B, T, D), = shp
+        a, b, h0 = rglru_inputs(torch, B, T, D, 98, dev)
+        h, _ = ref.rglru_ref(a, b, h0)
+        dh, dT = (torch.randn_like(x) for x in (h, h0))
+        args = (a, h, h0, dh, dT)
+        da_tol = 1e-5 * max(1.0, float(h.abs().max()))
+        return (lambda: rglru_bwd_cuda(*args),
+                lambda: ref.rglru_bwd_ref(*args), None,
+                [(da_tol, 1e-5), (1e-5, 1e-5), (1e-5, 1e-5)], 4)
     if name == "attention":        # at the model's dtype, bf16
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
         q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 92,
@@ -1579,21 +1917,43 @@ def phase_timing(torch, dev, cases, prof_ok):
     and bound, held to its plain version there."""
     rows = []
     for row_name, name, shp, n_launches in cases:
-        kern, plain, library, (atol, rtol), itemsize = timing_case(
+        kern, plain, library, tol, itemsize = timing_case(
             torch, dev, name, shp)
-        got, want = kern().float(), plain().float()
+        got, want = kern(), plain()
+        multi = isinstance(got, tuple)
+        got, want = (got, want) if multi else ((got,), (want,))
+        tols = tol if multi else [tol]
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        require(bool(((got - want).abs() <= atol + rtol * want.abs()).all()),
-                f"{name}: max abs err {err:.3g} over tolerance at {shp}")
-        rel = float((got - want).norm() / want.norm())
+        err = rel = 0.0
+        for g, w, (atol, rtol) in zip(got, want, tols):
+            g, w = g.float(), w.float()
+            e = (g - w).abs()
+            err = max(err, float(e.max()))
+            rel = max(rel, float((g - w).norm() / w.norm()))
+            require(bool((e <= atol + rtol * w.abs()).all()),
+                    f"{name}: max abs err {float(e.max()):.3g} over "
+                    f"tolerance at {shp}")
         if library is not None:
-            lib_tol = (3e-2, 3e-2) if name == "attention" else (atol, rtol)
-            lib_out = library().float().reshape(want.shape)
-            require(bool(torch.allclose(lib_out, want, atol=lib_tol[0],
-                                        rtol=lib_tol[1])),
-                    f"{name}: the library yardstick computes another "
-                    f"function")
+            lib_out = library()
+            lib_out = lib_out if multi else (lib_out,)
+            for g, w, (atol, rtol) in zip(lib_out, want, tols):
+                lib_tol = ((3e-2, 3e-2) if name.startswith("attention")
+                           else (atol, rtol))
+                g, w = g.float(), w.float()
+                if name == "attention_bwd":
+                    # SDPA's gradients of the repeated key heads, summed
+                    # over each group; ten bf16 gradients summed stray past
+                    # an elementwise 3e-2 near zero, so the check is 3e-2
+                    # in relative L2
+                    g = g.reshape(w.shape[0], w.shape[1], -1,
+                                  *w.shape[2:]).sum(2)
+                    ok = float((g - w).norm() / w.norm()) <= lib_tol[1]
+                else:
+                    ok = bool(torch.allclose(g.reshape(w.shape), w,
+                                             atol=lib_tol[0],
+                                             rtol=lib_tol[1]))
+                require(ok, f"{name}: the library yardstick computes "
+                        f"another function")
         if name == "attention":
             log(f"attention at {shp}: bf16 max abs err {err:.3g} (atol "
                 f"{atol} + rtol {rtol}), rel L2 {rel:.3g}; f32 max abs err "
@@ -1685,8 +2045,14 @@ def main() -> int:
     shapes.update(lm_shapes)
     log(f"[LM serving] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    tr_launches, tr_shapes = phase_lm_train(torch, dev, prof_ok)
+    log(f"[LM training] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
-             for name in TPU_KERNELS]
+             for name in TPU_KERNELS if not name.endswith("_bwd")]
+    # the training phase: the backward kernels at the train step's shapes
+    cases += [(name, name, tr_shapes[name], tr_launches[name])
+              for name in ("attention_bwd", "rglru_bwd")]
     cases += [(f"{name}@C{MC_CELLS}", name, mc_shapes[name],
                mc_launches[name]) for name in FL_KERNELS]
     # the ResNet phase: K1/K2 over 100 classes, K3 at d = 512 (one cell,

@@ -1,0 +1,104 @@
+"""The federated LM train step and the serving steps (counterpart of
+``repro/fl/distributed.py``).
+
+For tau = 1 a FedCGD round is
+
+    w' = sum_s alpha_s (w - eta grad f_s(w))
+       = w - eta sum_s alpha_s grad f_s(w)
+
+i.e. one SGD step on the *schedule-weighted* loss: the per-example loss
+weights carry alpha_v * x_v, so an unscheduled silo weighs 0 and the step
+itself never changes from round to round.  The reference's sharding
+context is not ported yet (ROADMAP.md, Queue 1): every step runs on the
+device its tensors lie on.
+
+  make_train_step(cfg, eta, federated) -> train_step(params, batch)
+                                          -> (new params, metrics)
+  make_serve_step(cfg)                 -> serve_step(params, cache, batch)
+  make_prefill_step(cfg, cache_len)    -> prefill_step(params, batch)
+                                          -> (logits [B,1,V], cache)
+  silo_weights(schedule_mask, n_silos) -> alpha_v * x_v per silo
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.estimation import tree_leaves, tree_map, tree_norm
+from repro_torch.models import transformer as T
+
+
+def make_train_step(cfg: ModelConfig, eta: float = 0.1,
+                    federated: bool = False):
+    """Returns train_step(params, batch) -> (new params, metrics).
+
+    batch: tokens/targets [B, S] (and an optional loss_mask [B, S]); when
+    ``federated``, batch['schedule_weights'] [B] carries alpha_v * x_v per
+    example (the examples of silo s all share weight alpha_s).  metrics:
+    ce_loss, aux_loss, loss and grad_norm (the L2 norm of every gradient
+    in f32), as 0-d tensors on the params' device.  The step is plain SGD,
+    p - eta * g in each leaf's dtype; the params passed in are left as
+    they were.
+    """
+
+    def train_step(params, batch):
+        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
+        leaves = tree_leaves(p)
+        lm_batch = dict(batch)
+        if federated:
+            w = lm_batch.pop("schedule_weights").to(torch.float32)
+            base = lm_batch.get("loss_mask")
+            S = batch["targets"].shape[1]
+            lm_batch["loss_mask"] = w[:, None] * (
+                base if base is not None
+                else torch.ones((w.shape[0], S), dtype=torch.float32,
+                                device=w.device))
+        with torch.enable_grad():
+            total, metrics = T.loss_fn(p, cfg, lm_batch)
+            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = iter([torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, grads)])
+            grads = tree_map(lambda _: next(grads), p)
+            new = tree_map(lambda x, g: x - eta * g.to(x.dtype), p, grads)
+            gnorm = tree_norm(grads)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.update(loss=total.detach(), grad_norm=gnorm)
+        return new, metrics
+
+    return train_step
+
+
+def make_serve_step(cfg: ModelConfig):
+    """serve_step(params, cache, batch) -> (logits [B,1,V], new cache):
+    one decode step (plain torch), with no gradient recorded."""
+
+    @torch.no_grad()
+    def serve_step(params, cache, batch):
+        return T.serve_step(params, cfg, cache, batch)
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig, cache_len: int):
+    """prefill_step(params, batch) -> (logits [B,1,V] of the last
+    position, cache for ``cache_len`` positions): the trunk over the
+    prompt, then the head on its last position only (the [B,S,V] head is
+    never formed)."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        x, _, cache = T.forward_hidden(params, cfg, batch,
+                                       collect_cache=True,
+                                       cache_len=cache_len)
+        return T._head(params, cfg, x[:, -1:]), cache
+
+    return prefill_step
+
+
+def silo_weights(schedule_mask, n_silos: int) -> torch.Tensor:
+    """alpha_v * x_v (Eq. 2) for the weighted federated step: with equal
+    dataset sizes alpha = mask / sum(mask), scaled by n_silos so that an
+    all-ones schedule reproduces the plain unweighted mean loss."""
+    m = torch.as_tensor(schedule_mask, dtype=torch.float32)
+    return m / torch.clamp(m.sum(), min=1.0) * n_silos

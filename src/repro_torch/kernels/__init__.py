@@ -7,13 +7,15 @@
                          softmax-CE head (replaces
                          repro/kernels/persample_gradnorm.py)
   flash_attention.py     CUDA C++: causal / sliding-window attention
-                         (replaces repro/kernels/flash_attention.py)
+                         (replaces repro/kernels/flash_attention.py), and
+                         its backward (csrc/flash_attention_bwd.cu)
   rwkv_scan.py           CUDA C++: RWKV6 WKV recurrence (replaces
                          repro/kernels/rwkv_scan.py)
   rglru_scan.py          CUDA C++: RG-LRU diagonal recurrence (replaces
-                         repro/kernels/rglru_scan.py)
+                         repro/kernels/rglru_scan.py), and its backward
 
-ops.py dispatches on the tensor's device; ref.py holds the plain
+ops.py dispatches on the tensor's device (and holds the autograd
+Functions that pair a kernel with its backward); ref.py holds the plain
 versions; common.py the launch counts and the nvcc build.
 """
 from repro_torch.kernels import ops, ref  # noqa: F401

@@ -48,6 +48,9 @@
 // a walk of 16 pairs between two barriers, and the replay's stores; the
 // blocks sharing an SM overlap those phases.
 //
+// The source also holds the backward (rglru_scan_bwd, rglru_bwd_launch):
+// the JAX package has none, it differentiates its plain recurrence.
+//
 // Plain C interface, loaded with ctypes.  The launcher makes `device`
 // current for the launch and restores the caller's device after it, and
 // returns cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -64,6 +67,7 @@ constexpr int kTile = 4 * kGroups;          // channels a block
 constexpr int kRuns = kThreads / kGroups;   // runs a segment
 constexpr int kL = 8;                       // steps a run
 constexpr int kSeg = kRuns * kL;            // steps a segment
+constexpr int kBwdBlocksPerSM = 4;          // the backward's, as the forward's
 
 // Channels ch .. ch + 3 of one time row; past D the value is `pad`.
 template <bool kVec>
@@ -167,6 +171,100 @@ rglru_scan(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// The backward, a reverse scan of the same form: with a_T = 1,
+//   g_{T-1} = dy_{T-1} + dh_T,  g_t = dy_t + a_{t+1} g_{t+1},
+//   db_t = g_t,  da_t = g_t h_{t-1} (h_{-1} = h0),  dh0 = a_0 g_0.
+// The forward's layout walked from the last segment to the first: thread
+// (run r, group g) loads its run's coefficients a_{t+1} and inputs dy_t,
+// composes them from the run's last step down into an f64 pair (prod,
+// g from 0), one thread a channel walks the pairs in reverse run order
+// from the carry (dh_T at the start), and every thread replays its run
+// downwards in f32, reading h_{t-1} as it stores db and da.  20 bytes an
+// element: a, dy and h read once, da and db written once.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSM)
+rglru_scan_bwd(const float* __restrict__ a, const float* __restrict__ h,
+               const float* __restrict__ h0, const float* __restrict__ dy,
+               const float* __restrict__ dh_last, float* __restrict__ da,
+               float* __restrict__ db, float* __restrict__ dh0, int T,
+               int D) {
+  __shared__ double A_s[kRuns][kTile];
+  __shared__ double H_s[kRuns][kTile];
+  __shared__ __align__(16) float cin_s[kRuns][kTile];
+  const int tid = threadIdx.x;
+  const int g = tid % kGroups, r = tid / kGroups;
+  const int ch0 = blockIdx.x * kTile;
+  const int ch = ch0 + 4 * g;
+  const int bi = blockIdx.y;
+  const size_t row0 = (size_t)bi * T;
+  double carry = 0.0;
+  if (tid < kTile && ch0 + tid < D) carry = dh_last[(size_t)bi * D + ch0 + tid];
+
+  for (int seg0 = ((T - 1) / kSeg) * kSeg; seg0 >= 0; seg0 -= kSeg) {
+    const int t0 = seg0 + r * kL;
+    float4 cv[kL], xv[kL];              // a_{t+1} and dy_t
+#pragma unroll
+    for (int j = 0; j < kL; ++j) {
+      const int t = t0 + j;
+      cv[j] = make_float4(1.f, 1.f, 1.f, 1.f);
+      xv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < T) {
+        const size_t o = (row0 + t) * D + ch;
+        xv[j] = load4<kVec>(dy + o, ch, D, 0.f);
+        if (t + 1 < T) cv[j] = load4<kVec>(a + o + D, ch, D, 1.f);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      double A = 1.0, H = 0.0;
+#pragma unroll
+      for (int j = kL - 1; j >= 0; --j) {
+        const double cj = at(cv[j], c);
+        A *= cj;
+        H = fma(cj, H, (double)at(xv[j], c));
+      }
+      A_s[r][4 * g + c] = A;
+      H_s[r][4 * g + c] = H;
+    }
+    __syncthreads();
+    if (tid < kTile) {                  // the runs' carry-ins, last run first
+      double x = carry;
+#pragma unroll
+      for (int q = kRuns - 1; q >= 0; --q) {
+        cin_s[q][tid] = (float)x;
+        x = fma(A_s[q][tid], x, H_s[q][tid]);
+      }
+      carry = x;
+    }
+    __syncthreads();
+    float4 gv = *reinterpret_cast<const float4*>(&cin_s[r][4 * g]);
+#pragma unroll
+    for (int j = kL - 1; j >= 0; --j) {
+      const int t = t0 + j;
+      gv.x = fmaf(cv[j].x, gv.x, xv[j].x);
+      gv.y = fmaf(cv[j].y, gv.y, xv[j].y);
+      gv.z = fmaf(cv[j].z, gv.z, xv[j].z);
+      gv.w = fmaf(cv[j].w, gv.w, xv[j].w);
+      if (t < T) {
+        const size_t o = (row0 + t) * D + ch;
+        const float4 hp = t > 0 ? load4<kVec>(h + o - D, ch, D, 0.f)
+                                : load4<false>(h0 + (size_t)bi * D + ch, ch,
+                                               D, 0.f);
+        store4<kVec>(db + o, ch, D, gv);
+        store4<kVec>(da + o, ch, D,
+                     make_float4(gv.x * hp.x, gv.y * hp.y, gv.z * hp.z,
+                                 gv.w * hp.w));
+        if (t == 0) {
+          const float4 a0 = load4<kVec>(a + o, ch, D, 0.f);
+          store4<false>(dh0 + (size_t)bi * D + ch, ch, D,
+                        make_float4(a0.x * gv.x, a0.y * gv.y, a0.z * gv.z,
+                                    a0.w * gv.w));
+        }
+      }
+    }
+  }
+}
+
 template <class F>
 int on_device(int device, F launch) {
   int prev = -1;
@@ -202,5 +300,32 @@ extern "C" int rglru_launch(const void* a, const void* b, const void* h0,
       rglru_scan<true><<<grid, kThreads, 0, st>>>(ap, bp, hp, yp, lp, T, D);
     else
       rglru_scan<false><<<grid, kThreads, 0, st>>>(ap, bp, hp, yp, lp, T, D);
+  });
+}
+
+// The backward: a, h (the forward's output), dy [B, T, D], h0, dh_last
+// [B, D] f32 give da, db [B, T, D] and dh0 [B, D] f32.  B, T or D = 0
+// launches nothing.
+extern "C" int rglru_bwd_launch(const void* a, const void* h, const void* h0,
+                                const void* dy, const void* dh_last, void* da,
+                                void* db, void* dh0, int B, int T, int D,
+                                int device, void* stream) {
+  if (B == 0 || T == 0 || D == 0) return 0;
+  const bool vec =
+      D % 4 == 0 && ((uintptr_t)a | (uintptr_t)h | (uintptr_t)dy |
+                     (uintptr_t)da | (uintptr_t)db) % 16 == 0;
+  const dim3 grid((D + kTile - 1) / kTile, B);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float *ap = (const float*)a, *hp = (const float*)h,
+              *h0p = (const float*)h0, *dyp = (const float*)dy,
+              *dlp = (const float*)dh_last;
+  float *dap = (float*)da, *dbp = (float*)db, *dh0p = (float*)dh0;
+  return on_device(device, [&] {
+    if (vec)
+      rglru_scan_bwd<true><<<grid, kThreads, 0, st>>>(ap, hp, h0p, dyp, dlp,
+                                                      dap, dbp, dh0p, T, D);
+    else
+      rglru_scan_bwd<false><<<grid, kThreads, 0, st>>>(ap, hp, h0p, dyp, dlp,
+                                                       dap, dbp, dh0p, T, D);
   });
 }

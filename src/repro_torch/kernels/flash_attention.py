@@ -9,6 +9,11 @@ cores.
 
   * ``flash_attention_cuda`` q [B, H, S, hd], k/v [B, KV, T, hd] (KV
     divides H; f32 or bf16, all one dtype) -> [B, H, S, hd] in q's dtype.
+  * ``flash_attention_bwd_cuda`` its backward (``csrc/flash_attention_bwd.cu``,
+    on the CUDA cores; the JAX package has none, it differentiates its
+    plain attention): q, k, v and dO -> (dq, dk, dv) in the inputs'
+    dtype, summed in f32; the GQA sum over a key head's query heads in a
+    fixed order, without atomics.
 
 The tensors may be strided views (only the last axis must be
 contiguous): the model passes its [B, S, H, hd] projections transposed,
@@ -40,9 +45,20 @@ def _launcher():
     return fn
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+@functools.cache
+def _bwd_launcher():
+    fn = load_library("flash_attention_bwd.cu").flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v, name):
+    """(B, H, KV, S, T, hd) of valid inputs; else raises ValueError."""
     if not all(isinstance(x, torch.Tensor) and x.is_cuda for x in (q, k, v)):
-        raise ValueError("flash_attention_cuda takes CUDA tensors only")
+        raise ValueError(f"{name} takes CUDA tensors only")
     if q.dim() != 4 or k.dim() != 4 or tuple(v.shape) != tuple(k.shape):
         raise ValueError("expected q [B,H,S,hd] and k, v [B,KV,T,hd]")
     B, H, S, hd = q.shape
@@ -60,6 +76,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
                          f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("attention kernel needs a contiguous last axis")
+    return B, H, KV, S, T, hd
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+    B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_cuda")
     if q.dtype == torch.bfloat16 and any(
             x.data_ptr() % 16 or any(x.stride(i) % 8 for i in range(3)
                                      if x.shape[i] > 1) for x in (q, k, v)):
@@ -80,3 +101,38 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
         raise RuntimeError(f"attention launch failed: cudaError {err}")
     count_launch("attention", q.shape, k.shape, (int(causal), int(window)))
     return out
+
+
+def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
+                             window: int = 0):
+    """Gradients of ``flash_attention_cuda(q, k, v)`` for the output's
+    gradient ``do`` [B, H, S, hd] -> (dq, dk, dv) in the inputs' dtype
+    (each strided as its input, when that is dense)."""
+    B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_bwd_cuda")
+    if not (isinstance(do, torch.Tensor) and do.is_cuda) \
+            or do.shape != q.shape or do.dtype != q.dtype \
+            or do.stride(3) != 1 or do.device != q.device:
+        raise ValueError("flash_attention_bwd_cuda needs do of q's shape, "
+                         "dtype and device, with a contiguous last axis")
+    if causal and T < S:
+        raise ValueError(f"attention backward: with causal and T {T} < S "
+                         f"{S} the first rows see no key")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if B * H * S * T == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 21)(*(
+        x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)))
+    device = q.get_device()
+    err = _bwd_launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        B, H, KV, S, T, hd, DTYPES[q.dtype], strides, int(causal),
+        int(window), 1.0 / math.sqrt(hd), device,
+        torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"attention backward launch failed: cudaError "
+                           f"{err}")
+    count_launch("attention_bwd", q.shape, k.shape,
+                 (int(causal), int(window)))
+    return dq, dk, dv

@@ -11,6 +11,13 @@ the f32 function).  The WEMD kernels take the scheduler's f64 state as it
 comes and round it to f32 as they load it, the rounding of the cast, so
 no cast kernel is launched in front of them; the Eq. 10 kernel reads
 int64 labels (the round's) as they come.
+
+Gradients.  On the CPU the plain versions run under autograd.  On the
+card, ``attention`` and ``rglru`` go through ``torch.autograd.Function``s
+whose backward is a hand-written kernel (``AttentionFn``, ``RGLRUFn``);
+``wkv`` and the FL kernels have no backward kernel yet, so they raise
+when a gradient is asked of them rather than return outputs that
+autograd would treat as constants.
 """
 from __future__ import annotations
 
@@ -27,6 +34,60 @@ def _route(x: torch.Tensor) -> str:
     if x.device.type == "cpu":
         return "cpu"
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def _refuse_grad(name: str, *xs) -> None:
+    """Raise where autograd would need a backward the card lacks."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet, and its "
+            f"kernel's outputs carry no gradient (ROADMAP.md, Queue 1: "
+            f"K5-bwd and the FL kernels); call it under torch.no_grad() "
+            f"or on CPU tensors")
+
+
+class AttentionFn(torch.autograd.Function):
+    """The attention kernel with its backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        from repro_torch.kernels.flash_attention import flash_attention_cuda
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_bwd_cuda)
+        q, k, v = ctx.saved_tensors
+        causal, window = ctx.mask
+        if do.stride(3) != 1:
+            do = do.contiguous()
+        return (*flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                          window=window), None, None)
+
+
+class RGLRUFn(torch.autograd.Function):
+    """The RG-LRU scan with its backward kernel (a reverse scan that
+    reads the forward's h)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        from repro_torch.kernels.rglru_scan import rglru_cuda
+        h, h_last = rglru_cuda(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+        a, h, h0 = ctx.saved_tensors
+        dh = torch.zeros_like(h) if dh is None else dh.contiguous()
+        dh_last = (torch.zeros_like(h0) if dh_last is None
+                   else dh_last.contiguous())
+        return rglru_bwd_cuda(a, h, h0, dh, dh_last)
 
 
 def _f32(*xs):
@@ -51,6 +112,7 @@ def wemd_swap(p_sum, p_dev, global_dist, class_weights, sizes):
     """Dense [B,V,V] swap-candidate WEMD matrix (FSCD inner loop)."""
     args = (p_sum, p_dev, global_dist, class_weights, sizes)
     if _route(p_dev) == "cuda":
+        _refuse_grad("wemd_swap", *args)
         return wemd_swap_cuda(*_wemd_cuda_args(args))
     return ref.wemd_swap_ref(*_f32(*args))
 
@@ -59,22 +121,25 @@ def wemd_add(p_sum, p_dev, global_dist, class_weights, sizes):
     """[B,V] add-candidate WEMD row (GS inner loop)."""
     args = (p_sum, p_dev, global_dist, class_weights, sizes)
     if _route(p_dev) == "cuda":
+        _refuse_grad("wemd_add", *args)
         return wemd_add_cuda(*_wemd_cuda_args(args))
     return ref.wemd_add_ref(*_f32(*args))
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """q [B,H,S,hd], k/v [B,KV,T,hd] (KV divides H; strided views
-    allowed) -> [B,H,S,hd] in q's dtype."""
+    allowed) -> [B,H,S,hd] in q's dtype; differentiable on both routes."""
     if _route(q) == "cuda":
-        from repro_torch.kernels.flash_attention import flash_attention_cuda
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+        return AttentionFn.apply(q, k, v, causal, window)
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 
 def wkv(r, k, v, w, u, state):
     """RWKV6 WKV over r, k, v, w [B,T,H,hd] from state [B,H,hd,hd] ->
-    (y [B,T,H,hd] in r's dtype, final state f32)."""
+    (y [B,T,H,hd] in r's dtype, final state f32).  On the card it takes
+    no gradient (raises when asked for one)."""
+    if _route(r) == "cuda":
+        _refuse_grad("wkv", r, k, v, w, u, state)
     args = _f32(r, k, v, w, u, state)
     if _route(r) == "cuda":
         from repro_torch.kernels.rwkv_scan import wkv_cuda
@@ -86,11 +151,10 @@ def wkv(r, k, v, w, u, state):
 
 def rglru(a, b, h0):
     """h_t = a_t h_{t-1} + b_t: a, b [B,T,D], h0 [B,D] -> (h [B,T,D],
-    h_T [B,D]), f32."""
+    h_T [B,D]), f32; differentiable on both routes."""
     args = _f32(a, b, h0)
     if _route(a) == "cuda":
-        from repro_torch.kernels.rglru_scan import rglru_cuda
-        return rglru_cuda(*args)
+        return RGLRUFn.apply(*args)
     return ref.rglru_ref(*args)
 
 
@@ -98,6 +162,7 @@ def persample_gradnorm(features, logits, labels):
     """Eq. 10 for a softmax-CE head: features [..., B, d] with at most
     one leading device axis -> (sigma [...], gi_sq [..., B])."""
     if _route(features) == "cuda":
+        _refuse_grad("persample_gradnorm", features, logits)
         h, lg = _f32(features, logits)
         if labels.dtype not in (torch.int64, torch.int32):
             labels = labels.long()

@@ -41,6 +41,21 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         v.to(torch.float32)).to(q.dtype)
 
 
+def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0):
+    """Gradients of ``attention_ref(q, k, v)`` for the output's gradient
+    ``do`` -> (dq, dk, dv) in the inputs' dtype: autograd of the dense
+    version on the inputs cast to f32, each gradient rounded to the
+    inputs' dtype once (the plain version of the attention backward
+    kernel; autograd through bf16 leaves would round each query head's
+    share of dk and dv before the sum over a key head's group)."""
+    with torch.enable_grad():
+        leaves = [x.detach().to(torch.float32).requires_grad_(True)
+                  for x in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window)
+        grads = torch.autograd.grad(out, leaves, do.to(torch.float32))
+    return tuple(g.to(q.dtype) for g in grads)
+
+
 def wkv_ref(r, k, v, w, u, state=None):
     """RWKV6 naive recurrence. r,k,v,w [B,T,H,hd]; u [H,hd];
     state [B,H,hd,hd] f32 (zeros when None).  Returns
@@ -70,6 +85,22 @@ def rglru_ref(a, b, h0):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
     return (torch.stack(hs, dim=1) if hs else torch.zeros_like(a)), h
+
+
+def rglru_bwd_ref(a, h, h0, dh, dh_last):
+    """Gradients of ``rglru_ref``'s (h, h_T) for a, h [B,T,D] (h the
+    forward's output), h0 [B,D] and the outputs' gradients dh [B,T,D],
+    dh_last [B,D] -> (da, db, dh0), f32, the reverse recurrence step by
+    step: g_t = dh_t + a_{t+1} g_{t+1} from g_T = dh_last (a_T = 1);
+    db_t = g_t, da_t = g_t h_{t-1} (h_{-1} = h0), dh0 = a_0 g_0."""
+    T = a.shape[1]
+    g = dh_last
+    da, db = torch.zeros_like(a), torch.zeros_like(a)
+    for t in range(T - 1, -1, -1):
+        g = dh[:, t] + (a[:, t + 1] * g if t + 1 < T else g)
+        db[:, t] = g
+        da[:, t] = g * (h[:, t - 1] if t else h0)
+    return da, db, (a[:, 0] * g if T else g)
 
 
 def wemd_swap_ref(p_sum, p_dev, global_dist, class_weights, sizes):

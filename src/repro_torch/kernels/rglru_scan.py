@@ -7,6 +7,10 @@ called through ``ctypes``.
 
   * ``rglru_cuda`` a, b [B, T, D] f32, h0 [B, D] f32 -> (h [B, T, D],
     h_T [B, D]), both f32.
+  * ``rglru_bwd_cuda`` its backward (the JAX package has none: it
+    differentiates its plain recurrence): a, h (the forward's output),
+    dh [B, T, D], h0, dh_T [B, D] f32 -> (da, db [B, T, D], dh0 [B, D]),
+    a reverse scan of the same layout in the same source.
 
 The launch path is short: one validation pass, the outputs'
 ``new_empty``, the current stream's raw handle, one ``ctypes`` call whose
@@ -29,6 +33,15 @@ from repro_torch.kernels.common import count_launch, load_library
 def _launcher():
     fn = load_library("rglru_scan.cu").rglru_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = load_library("rglru_scan.cu").rglru_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -70,3 +83,23 @@ def rglru_cuda(a, b, h0):
         raise RuntimeError(f"rglru launch failed: cudaError {err}")
     count_launch("rglru", a.shape)
     return y, h_last
+
+
+def rglru_bwd_cuda(a, h, h0, dh, dh_last):
+    """Gradients of ``rglru_cuda``'s (h, h_T) -> (da, db, dh0)."""
+    B, T, D, device = _check(a, h, h0)
+    _check(a, dh, dh_last)
+    if T == 0:
+        return a.new_empty(a.shape), a.new_empty(a.shape), dh_last.clone()
+    da, db = a.new_empty(a.shape), a.new_empty(a.shape)
+    dh0 = h0.new_empty(h0.shape)
+    if B * D == 0:
+        return da, db, dh0
+    err = _bwd_launcher()(a.data_ptr(), h.data_ptr(), h0.data_ptr(),
+                          dh.data_ptr(), dh_last.data_ptr(), da.data_ptr(),
+                          db.data_ptr(), dh0.data_ptr(), B, T, D, device,
+                          torch._C._cuda_getCurrentRawStream(device))
+    if err != 0:
+        raise RuntimeError(f"rglru backward launch failed: cudaError {err}")
+    count_launch("rglru_bwd", a.shape)
+    return da, db, dh0

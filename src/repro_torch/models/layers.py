@@ -221,3 +221,20 @@ def softmax_cross_entropy(logits, targets, mask=None, label_smoothing=0.0):
         return loss.mean()
     mask = mask.to(torch.float32)
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def softmax_cross_entropy_sums(logits, targets, mask=None,
+                               label_smoothing=0.0):
+    """(weighted loss sum, weight sum): the chunked CE's building block."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    onehot = (torch.arange(logits.shape[-1], device=logits.device)
+              == targets[..., None])
+    true_logit = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    loss = logz - true_logit
+    if label_smoothing:
+        loss = (1 - label_smoothing) * loss + label_smoothing * (
+            logz - logits.mean(dim=-1))
+    mask = (torch.ones_like(loss) if mask is None
+            else mask.to(torch.float32))
+    return (loss * mask).sum(), mask.sum()

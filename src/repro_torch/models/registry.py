@@ -19,8 +19,9 @@ class Model:
     cfg: Any
     init: Callable             # (torch.Generator) -> params
     forward: Callable
-    # the vision models' (the LM's training is not ported yet)
-    loss_fn: Optional[Callable] = None     # (params, batch, dropout=None)
+    # vision models: (params, batch, dropout=None); LMs: (params, batch),
+    # both -> (loss, metrics)
+    loss_fn: Optional[Callable] = None
     dropout_shapes: Optional[Callable] = None  # (batch_size) -> mask shapes
     # the LM's decode
     init_cache: Optional[Callable] = None  # (batch, cache_len, device)
@@ -55,6 +56,7 @@ def _lm_model(cfg: ModelConfig) -> Model:
         init=lambda gen: T.init(gen, cfg),       # on the generator's device
         forward=lambda params, batch, **kw: T.forward(params, cfg, batch,
                                                       **kw),
+        loss_fn=lambda params, batch: T.loss_fn(params, cfg, batch),
         init_cache=lambda batch, cache_len, device: T.init_cache(
             cfg, batch, cache_len, device),
         serve_step=lambda params, cache, batch: T.serve_step(

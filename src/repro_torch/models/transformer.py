@@ -3,15 +3,20 @@
 As in the JAX package, the parameters of the ``num_full_periods`` pattern
 periods are stacked on a leading [nper] axis (``params["blocks"]``) and
 the remainder layers are ``rem{i}``; here the periods run in a Python
-loop over views of the stacked leaves.  Prefill runs the hand-written
-kernels through ``kernels.ops`` (local attention, the RG-LRU scan, the
-WKV recurrence); decode is plain torch.  Cross attention, MoE FFNs and
+loop over views of the stacked leaves.  Prefill and training run the
+hand-written kernels through ``kernels.ops`` (local attention, the
+RG-LRU scan, the WKV recurrence; on the card attention and the RG-LRU
+scan also run their backward kernels, and the WKV recurrence takes no
+gradient yet); decode is plain torch.  Cross attention, MoE FFNs and
 the audio / VLM front ends are not ported yet and raise.
 
 Public API (functional):
     init(gen, cfg)                                  -> params
+    forward_hidden(params, cfg, batch, collect_cache, cache_len)
+                                                    -> (hidden, aux, cache)
     forward(params, cfg, batch, collect_cache, cache_len)
                                                     -> (logits, aux, cache)
+    loss_fn(params, cfg, batch)                     -> (loss, metrics)
     init_cache(cfg, batch_size, cache_len, device)  -> cache
     serve_step(params, cfg, cache, batch)           -> (logits, cache)
 """
@@ -20,6 +25,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
                                       RECURRENT, RWKV, ModelConfig)
@@ -69,6 +76,14 @@ def _stack(trees):
 
 def _index(tree, i):
     return _map(lambda x: x[i], tree)
+
+
+def _unbind(tree, n):
+    """The n trees of ``tree``'s leading axis."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return tree.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -265,12 +280,15 @@ def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
 
 
 # ---------------------------------------------------------------------------
-# trunk
+# trunk, head and loss
 
 
 def _embed(params, cfg: ModelConfig, batch):
+    # F.embedding: its backward on CUDA sums a row's gradients in a fixed
+    # order (indexing's scatter-add uses atomics), so a train step repeats
+    # bit for bit
     dt = _dtype(cfg)
-    x = params["embed"][batch["tokens"]].to(dt)
+    x = F.embedding(batch["tokens"], params["embed"]).to(dt)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
         device=x.device, dtype=dt)
 
@@ -287,27 +305,39 @@ def _head(params, cfg: ModelConfig, x):
     return logits
 
 
-def forward(params, cfg: ModelConfig, batch, collect_cache: bool = False,
-            cache_len: int = 0):
-    """Full-sequence forward of batch['tokens'] [B,S].  Returns (logits
-    [B,S,V] f32, aux, cache-or-None); with ``collect_cache`` the cache
-    holds ``cache_len`` positions for the decode that follows."""
+def forward_hidden(params, cfg: ModelConfig, batch,
+                   collect_cache: bool = False, cache_len: int = 0):
+    """The trunk: every layer over batch['tokens'] [B,S].  Returns (final
+    hidden [B,S,d] before the head, aux, cache-or-None); with
+    ``collect_cache`` the cache holds ``cache_len`` positions for the
+    decode that follows.  With ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint`` when a gradient is being recorded (as the
+    JAX package's ``jax.checkpoint``), so the backward recomputes it
+    and holds one layer's transients at a time."""
     check_ported(cfg)
     x = _embed(params, cfg, batch)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    cache = {}
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = dict(q_pos=q_pos, collect_cache=collect_cache, cache_len=cache_len)
 
     def run(p, kind, x, aux):
-        x, a, st = apply_layer(p, cfg, kind, x, q_pos=q_pos,
-                               collect_cache=collect_cache,
-                               cache_len=cache_len)
+        if remat:
+            x, a, st = checkpoint(apply_layer, p, cfg, kind, x,
+                                  use_reentrant=False, **kw)
+        else:
+            x, a, st = apply_layer(p, cfg, kind, x, **kw)
         return x, aux + a, st
 
+    cache = {}
     states = []
-    for pi in range(cfg.num_full_periods):
-        pparams = _index(params["blocks"], pi)
+    # one unbind of each stacked leaf: its backward stacks the periods'
+    # gradients once (a view per period would add a zero-filled copy of
+    # the whole stack per period)
+    periods = (_unbind(params["blocks"], cfg.num_full_periods)
+               if cfg.num_full_periods else [])
+    for pparams in periods:
         st = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, aux, st[f"layer{i}"] = run(pparams[f"layer{i}"], kind, x, aux)
@@ -318,11 +348,72 @@ def forward(params, cfg: ModelConfig, batch, collect_cache: bool = False,
         x, aux, st = run(params[f"rem{i}"], cfg.block_pattern[i], x, aux)
         if collect_cache:
             cache[f"rem{i}"] = st
-    logits = _head(params, cfg, x)
     if collect_cache:
         cache["pos"] = torch.tensor(S, dtype=torch.int32, device=x.device)
-        return logits, aux, cache
-    return logits, aux, None
+        return x, aux, cache
+    return x, aux, None
+
+
+def forward(params, cfg: ModelConfig, batch, collect_cache: bool = False,
+            cache_len: int = 0):
+    """Full-sequence forward of batch['tokens'] [B,S].  Returns (logits
+    [B,S,V] f32, aux, cache-or-None)."""
+    x, aux, cache = forward_hidden(params, cfg, batch, collect_cache,
+                                   cache_len)
+    return _head(params, cfg, x), aux, cache
+
+
+CE_CHUNK = 512
+
+
+def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0):
+    """Next-token CE of batch['targets'] [B,S] (weighted by
+    batch['loss_mask'] when given) plus the aux loss -> (total, {"ce_loss",
+    "aux_loss"}).  Where S * vocab > 2**24 the head and CE run chunk by
+    chunk (``_chunked_ce``), so the [B,S,V] f32 logits are never whole."""
+    S = batch["targets"].shape[1]
+    big = S * cfg.vocab_size > (1 << 24)
+    if big and not cfg.unroll_for_costing:
+        x, aux, _ = forward_hidden(params, cfg, batch)
+        loss = _chunked_ce(params, cfg, x, batch["targets"],
+                           batch.get("loss_mask"), label_smoothing)
+    else:
+        logits, aux, _ = forward(params, cfg, batch)
+        loss = L.softmax_cross_entropy(logits, batch["targets"],
+                                       batch.get("loss_mask"),
+                                       label_smoothing)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+
+
+def _chunked_ce(params, cfg: ModelConfig, x, targets, mask,
+                label_smoothing: float, chunk: int = CE_CHUNK):
+    """The head and CE over sequence chunks of x [B,S,d] (the tail padded
+    with zero weight), each chunk under ``torch.utils.checkpoint`` (its
+    [B,chunk,V] logits are recomputed in the backward, not kept)."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    mask = (torch.ones((B, S), dtype=torch.float32, device=x.device)
+            if mask is None else mask.to(torch.float32))
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+
+    def body(xi, ti, mi):
+        return L.softmax_cross_entropy_sums(_head(params, cfg, xi), ti, mi,
+                                            label_smoothing)
+
+    sums, wsums = [], []
+    for c0 in range(0, S + pad, chunk):
+        args = (x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        s, w = (checkpoint(body, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else body(*args))
+        sums.append(s)
+        wsums.append(w)
+    return torch.stack(sums).sum() / torch.clamp(torch.stack(wsums).sum(),
+                                                 min=1.0)
 
 
 def serve_step(params, cfg: ModelConfig, cache, batch):

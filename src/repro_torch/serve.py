@@ -10,9 +10,11 @@ The counterpart of ``examples/serve_lm.py``.  Weights and prompts are
 random, drawn from ``--seed`` by a ``torch.Generator`` on the device.  By
 default it serves the full configuration (published width and depth, in
 the config's dtype) on the GPU; ``--reduced`` serves the config's
-``reduced()`` variant, as the JAX example always does.  Prefill runs the
-hand-written kernels; decode is plain torch.  ``--temperature 0`` is
-greedy decoding.
+``reduced()`` variant, as the JAX example always does.  Prefill
+(``fl.distributed.make_prefill_step``: the trunk through the hand-written
+kernels, the head on the last position only) and decode
+(``make_serve_step``, plain torch) are the reference's serving steps.
+``--temperature 0`` is greedy decoding.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from repro_torch.configs import get_config, list_archs
 from repro_torch.device import resolve_device
+from repro_torch.fl.distributed import make_prefill_step, make_serve_step
 from repro_torch.kernels import common
 from repro_torch.models.registry import build_model
 
@@ -50,22 +53,20 @@ def generate(model, params, prompt, gen_len: int, *, temperature=0.0,
     time, the decode rate and the kernel launches of each phase (from
     ``kernels.common.LAUNCHES``)."""
     B, P = prompt.shape
-    cache_len = P + gen_len + 8
+    prefill_step = make_prefill_step(model.cfg, cache_len=P + gen_len + 8)
+    serve_step = make_serve_step(model.cfg)
     dev = prompt.device
     launches = [collections.Counter(common.LAUNCHES)]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, _, cache = model.forward(params, {"tokens": prompt},
-                                     collect_cache=True, cache_len=cache_len)
+    logits, cache = prefill_step(params, {"tokens": prompt})
     tok = sample(logits[:, -1], temperature, generator)
-    del logits
     _sync(dev)
     t1 = time.perf_counter()
     launches.append(collections.Counter(common.LAUNCHES))
     out = [tok]
     for _ in range(gen_len - 1):
-        logits, cache = model.serve_step(params, cache,
-                                         {"tokens": tok[:, None]})
+        logits, cache = serve_step(params, cache, {"tokens": tok[:, None]})
         tok = sample(logits[:, -1], temperature, generator)
         out.append(tok)
     _sync(dev)

@@ -80,6 +80,10 @@ def test_entry_points_raise_without_gpu(no_gpu):
         serve_main(["--arch", "rwkv6-3b", "--reduced", "--gen", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.lm_params_from_jax({"embed": np.zeros((4, 2))})
+    from repro_torch.launch import federated_lm_silos, train
+    for entry in (train.main, federated_lm_silos.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(["--arch", "rwkv6-3b", "--reduced"])
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

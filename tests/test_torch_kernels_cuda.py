@@ -463,3 +463,191 @@ def test_rglru_kernel_repeatable_on_card(cuda, B, T, D):
     y2, h2 = rglru_cuda(a, b, h0)
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (K4-bwd, K6-bwd) and the gradient route of ops
+
+# B, H, KV, S, T, hd: the forward's sweep; ten query heads on one key head
+# at hd 256 (recurrentgemma-2b's layout); T > S (queries right-aligned);
+# S off the 32-row tiles
+ATTN_BWD_CASES = [(B, H, H, S, T, hd) for B, H, S, T, hd in ATTN_SHAPES] + [
+    (2, 10, 1, 300, 300, 256), (1, 4, 2, 100, 300, 128),
+    (2, 10, 1, 256, 256, 256)]
+
+
+def attn_bwd_inputs(rng, B, H, KV, S, T, hd, dtype, device):
+    """q, k, v through the model's [B, S, H, hd] strides, and dO."""
+    q = torch.as_tensor(randn(rng, (B, S, H, hd)), device=device)
+    kv = torch.as_tensor(randn(rng, (2, B, T, KV, hd)), device=device)
+    do = torch.as_tensor(randn(rng, (B, S, H, hd)), device=device)
+    return [x.to(dtype).transpose(1, 2) for x in (q, kv[0], kv[1], do)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd", ATTN_BWD_CASES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
+def test_attention_bwd_kernel_on_card(cuda, B, H, KV, S, T, hd, causal,
+                                      window):
+    """dq, dk, dv against autograd of the plain version, f32 at the
+    forward's tolerances (atol 3e-5, rtol 1e-4); dk and dv sum over a
+    key head's query heads."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(S + T + H), B, H,
+                                  KV, S, T, hd, torch.float32, cuda)
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = tref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=1e-4, msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd", [(1, 2, 2, 257, 257, 32),
+                                           (2, 10, 1, 300, 300, 256),
+                                           (1, 4, 2, 100, 300, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 100)])
+def test_attention_bwd_kernel_bf16_on_card(cuda, B, H, KV, S, T, hd, causal,
+                                           window):
+    """bf16 inputs: the f32 sums rounded to bf16 once, as the plain
+    version's autograd rounds its f32 gradients: one bf16 step apart
+    (the forward's BF16_ATTN_TOL)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(S + hd), B, H, KV,
+                                  S, T, hd, torch.bfloat16, cuda)
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = tref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=BF16_ATTN_TOL[0],
+                                   rtol=BF16_ATTN_TOL[1], msg=name)
+
+
+@pytest.mark.requires_cuda
+def test_attention_bwd_kernel_repeatable_and_refusals_on_card(cuda):
+    """Two calls give one bit pattern at the train step's shape (the GQA
+    sum has a fixed order, no atomics); causal rows that see no key (T <
+    S) are refused."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    args = attn_bwd_inputs(np.random.default_rng(3), 16, 10, 1, 256, 256,
+                           256, torch.bfloat16, cuda)
+    one = flash_attention_bwd_cuda(*args)
+    two = flash_attention_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(4), 1, 2, 2, 100, 50,
+                                  64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention_bwd_cuda(q, k, v, do, causal=True)
+
+
+def close_rglru_bwd(got, want, h):
+    """db and dh0 (the reverse recurrence's g) within 1e-5; da = g h_{t-1}
+    carries g's 1e-5 times |h|, so its atol is 1e-5 x max(1, max |h|)
+    (at a = 1 and 0.9999 over 100 unit steps |h| reaches 27, and the plain
+    f32 version's own da lies 1.19x of a plain 1e-5 from f64's)."""
+    atol = 1e-5 * max(1.0, float(h.abs().max()))
+    for name, g, w in zip(("da", "db", "dh0"), got, want):
+        torch.testing.assert_close(g, w, atol=atol if name == "da" else 1e-5,
+                                   rtol=1e-5, msg=name)
+
+
+def rglru_bwd_case(rng, B, T, D, device, a_val=None, scaled=False):
+    """(a, h, h0, dh, dh_T): the forward's inputs, its plain output h and
+    random output gradients (scaled as b when ``scaled``)."""
+    a, b, h0 = rglru_inputs(rng, B, T, D, device, a_val, scaled)
+    h, _ = tref.rglru_ref(a, b, h0)
+    dh = torch.as_tensor(randn(rng, (B, T, D)), device=device)
+    if scaled:
+        dh = torch.sqrt(1 - a * a) * dh
+    return a, h, h0, dh, torch.as_tensor(randn(rng, (B, D)), device=device)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,D", RGLRU_SHAPES + RGLRU_CARD_SHAPES)
+def test_rglru_bwd_kernel_on_card(cuda, B, T, D):
+    """da, db, dh0 against the step-by-step reverse recurrence
+    (``close_rglru_bwd``'s tolerances)."""
+    from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+    args = rglru_bwd_case(np.random.default_rng(T + D + 1), B, T, D, cuda)
+    got = rglru_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    close_rglru_bwd(got, tref.rglru_bwd_ref(*args), args[1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("a_val", [0.0, 1.0, 0.9999])
+@pytest.mark.parametrize("T,D,scaled", [(100, 64, False), (100, 37, False),
+                                        (3072, 64, True)])
+def test_rglru_bwd_kernel_extreme_a_on_card(cuda, a_val, T, D, scaled):
+    """a = 0, 1 and 0.9999, as the forward's case: unit output gradients
+    over 100 steps, and gradients scaled by sqrt(1 - a^2) over 3072."""
+    from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+    args = rglru_bwd_case(np.random.default_rng(19), 2, T, D, cuda, a_val,
+                          scaled)
+    got = rglru_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    close_rglru_bwd(got, tref.rglru_bwd_ref(*args), args[1])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,D", [(16, 256, 2560), (2, 257, 37)])
+def test_rglru_bwd_kernel_repeatable_on_card(cuda, B, T, D):
+    from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+    args = rglru_bwd_case(np.random.default_rng(6), B, T, D, cuda)
+    one, two = rglru_bwd_cuda(*args), rglru_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.requires_cuda
+def test_kernel_outputs_carry_gradients_on_card(cuda):
+    """``ops.attention`` and ``ops.rglru`` on CUDA tensors give the plain
+    versions' autograd gradients (their kernels' outputs once had no
+    grad_fn, so autograd dropped what flowed through them); ``ops.wkv``
+    and the FL kernels raise under grad instead of returning outputs
+    autograd would treat as constants."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(8)
+    q, k, v, do = attn_bwd_inputs(rng, 2, 10, 1, 64, 64, 256, torch.float32,
+                                  cuda)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = ops.attention(*leaves, causal=True, window=16)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    want = tref.attention_bwd_ref(q, k, v, do, causal=True, window=16)
+    for g, w in zip(got, want):
+        assert float(g.abs().max()) > 0
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=1e-4)
+
+    a, b, h0 = rglru_inputs(rng, 2, 100, 64, cuda)
+    leaves = [x.detach().requires_grad_(True) for x in (a, b, h0)]
+    h, hT = ops.rglru(*leaves)
+    dh = torch.as_tensor(randn(rng, (2, 100, 64)), device=cuda)
+    dT = torch.as_tensor(randn(rng, (2, 64)), device=cuda)
+    got = torch.autograd.grad((h, hT), leaves, (dh, dT))
+    with torch.enable_grad():
+        plain = [x.detach().requires_grad_(True) for x in (a, b, h0)]
+        want = torch.autograd.grad(tref.rglru_ref(*plain), plain, (dh, dT))
+    for g, w in zip(got, want):
+        assert float(g.abs().max()) > 0
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+
+    r = torch.randn(1, 16, 2, 64, device=cuda, requires_grad=True)
+    w = torch.rand(1, 16, 2, 64, device=cuda) * 0.5 + 0.4
+    u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(1, 2, 64, 64,
+                                                         device=cuda)
+    with pytest.raises(NotImplementedError, match="wkv"):
+        ops.wkv(r, r.detach(), r.detach(), w, u, s0)
+    with torch.no_grad():
+        ops.wkv(r, r, r, w, u, s0)
+    h, lg, lab = to_torch(psg_inputs(32, 120, 10, 0), cuda)
+    with pytest.raises(NotImplementedError, match="persample_gradnorm"):
+        ops.persample_gradnorm(h.requires_grad_(True), lg, lab)
+    p_sum, p_dev, gd, cw, sizes = to_torch(wemd_inputs(2, 16, 10, 5, 0), cuda)
+    for op in (ops.wemd_add, ops.wemd_swap):
+        with pytest.raises(NotImplementedError, match="wemd"):
+            op(p_sum, p_dev.requires_grad_(True), gd, cw, sizes)

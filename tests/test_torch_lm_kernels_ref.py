@@ -457,3 +457,90 @@ def test_lm_kernel_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="no kernel"):
         ops.rglru(a.to("meta"), a.to("meta"), a[:, 0].to("meta"))
     assert jax.default_backend() == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the backward kernels (K4-bwd, K6-bwd) against
+# jax.vjp of the JAX package's plain attention and RG-LRU
+
+# B, H, KV, S, T, hd: GQA groups of 1, 2 and 10 query heads, T > S
+# (queries right-aligned)
+ATTN_BWD_CASES = [(2, 3, 3, 40, 40, 32), (1, 4, 2, 33, 33, 64),
+                  (1, 10, 1, 48, 48, 256), (1, 2, 1, 20, 50, 32)]
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,hd", ATTN_BWD_CASES)
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 8), (False, 0)])
+def test_attention_bwd_plain_matches_reference_vjp(B, H, KV, S, T, hd,
+                                                   causal, window):
+    """dq, dk, dv of ``attention_bwd_ref`` against ``jax.vjp`` of
+    ``repro.kernels.ref.attention_ref`` over key heads repeated to the
+    query heads (so dk and dv sum over a group), at the forward's f32
+    tolerance."""
+    rng = np.random.default_rng(S + T + H + window)
+    q, do = (randn(rng, (B, H, S, hd)) for _ in range(2))
+    k, v = (randn(rng, (B, KV, T, hd)) for _ in range(2))
+    G = H // KV
+
+    def f(q, k, v):
+        return jref.attention_ref(q, jnp.repeat(k, G, axis=1),
+                                  jnp.repeat(v, G, axis=1), causal=causal,
+                                  window=window)
+
+    _, vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    got = tref.attention_bwd_ref(t(q), t(k), t(v), t(do), causal=causal,
+                                 window=window)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5,
+                                   rtol=1e-4, err_msg=name)
+
+
+def test_attention_bwd_plain_bf16_rounds_once():
+    """On bf16 inputs the plain backward is the f32 one rounded to bf16
+    once, in the inputs' dtype."""
+    rng = np.random.default_rng(2)
+    q, k, v, do = (t(randn(rng, (1, 4, 24, 32))).to(torch.bfloat16)
+                   for _ in range(4))
+    got = tref.attention_bwd_ref(q, k[:, :2], v[:, :2], do, window=8)
+    want = tref.attention_bwd_ref(*(x.float() for x in (q, k[:, :2],
+                                                        v[:, :2], do)),
+                                  window=8)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("B,T,D,a_val", [(2, 300, 64, None),
+                                         (3, 37, 100, None),
+                                         (2, 100, 37, 0.0), (2, 100, 37, 1.0),
+                                         (2, 100, 37, 0.9999),
+                                         (2, 1, 8, None)])
+def test_rglru_bwd_plain_matches_reference_vjp(B, T, D, a_val):
+    """da, db, dh0 of ``rglru_bwd_ref`` (the reverse recurrence written
+    out, reading the forward's h) against ``jax.vjp`` of
+    ``repro.kernels.ref.rglru_ref`` at the forward's 1e-5, with a
+    gradient into h and into h_T; a = 0, 1 and 0.9999 included."""
+    rng = np.random.default_rng(T + D)
+    a = (rng.uniform(0.8, 0.999, (B, T, D)) if a_val is None
+         else np.full((B, T, D), a_val)).astype(np.float32)
+    b, dh = randn(rng, (B, T, D)), randn(rng, (B, T, D))
+    h0, dT = randn(rng, (B, D)), randn(rng, (B, D))
+    (h, _), vjp = jax.vjp(jref.rglru_ref, jnp.asarray(a), jnp.asarray(b),
+                          jnp.asarray(h0))
+    want = vjp((jnp.asarray(dh), jnp.asarray(dT)))
+    got = tref.rglru_bwd_ref(t(a), t(np.array(h)), t(h0), t(dh), t(dT))
+    for name, g, w in zip(("da", "db", "dh0"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_lm_backward_wrappers_take_cuda_tensors_only():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
+    x = torch.zeros(1, 2, 8, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_cuda(x, x, x, x)
+    a = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_bwd_cuda(a, a, a[:, 0], a, a[:, 0])
