@@ -28,11 +28,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      classes, (1, 64, 100), (8, 27, 100), (32, 23, 100), and
      persample_gradnorm at the ResNet's d = 512, C = 100 for V = 19 and
      152, aligned gradients included); the backward kernels against
-     autograd of the plain attention (f32 at 3e-5 / 1e-4, bf16 at one
-     bf16 step; GQA groups of 1, 2 and 10, a window, T > S, the train
-     step's shape) and the written-out reverse RG-LRU recurrence (1e-5;
-     da, which is g h_{t-1}, at 1e-5 x max(1, max |h|); a = 1 and
-     0.9999), each twice, bitwise equal;
+     autograd of the plain attention (f32 at 3e-5 / 1e-4 on the CUDA
+     cores, bf16 at one bf16 step on the tensor cores; GQA groups of 1,
+     2 and 10, head sizes 32 to 256, a window, T > S, the train step's
+     shape, there also with 1, 2 and 10 parts of the GQA sum) and the
+     written-out reverse RG-LRU recurrence (1e-5; da, which is g h_{t-1},
+     at 1e-5 x max(1, max |h|); a = 1 and 0.9999), each twice, bitwise
+     equal;
   3. solves 100 seeded random P1 problems with the torch scheduler on the
      card (25 at each of V = 16 and 64 for C = 10 and C = 100) and
      requires the numpy solvers' masks and iteration counts;
@@ -119,8 +121,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      for ``persample_gradnorm`` also ``path_ms``, the round's call
      (``ops.persample_gradnorm`` on int64 labels), which must run one
      device op (no cast kernel in front of the kernel); for attention
-     also the rate over the visible pairs (``tflops``); for every kernel
-     the share of the bound (``bound_share``, bound over device time).
+     also the rate over the visible pairs (``tflops``); for attention's
+     backward the time with each part count of the GQA sum
+     (``parts_ms``) and the device time of each of its launches
+     (``device_kernels``); for every kernel the share of the bound
+     (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
 the card's name and power limit; the last line is
@@ -446,26 +451,59 @@ def profiler_works(torch) -> bool:
     return True
 
 
-def device_ms(torch, fn):
-    """Device time of the kernels ``fn`` launches, per call, from a
-    ``torch.profiler`` trace of 50 calls or fewer (None when the trace
-    holds no device time): the kernels' own time, without the host's
-    launch path.  A trace can drop a launch, so each kernel's mean
-    time is weighted by its launches per call (its count over the calls,
-    rounded), not summed and divided by the calls."""
+def device_kernels(torch, fn):
+    """Each kernel ``fn`` launches (name cut to 60 characters) -> [device
+    ms a launch, launches a call], from a ``torch.profiler`` trace of 50
+    calls or fewer: the kernels' own time, without the host's launch
+    path.  A trace can drop a launch, so launches a call are a kernel's
+    count over the calls, rounded, at least 1."""
     from torch.profiler import ProfilerActivity, profile
     n = calls_per_rep(torch, fn)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    out = {}
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total",
                     getattr(ev, "self_cuda_time_total", 0.0))
         if t > 0 and ev.count:
-            total_us += t / ev.count * max(1, round(ev.count / n))
-    return total_us / 1e3 if total_us > 0 else None
+            out[ev.key[:60]] = [t / ev.count / 1e3,
+                                max(1, round(ev.count / n))]
+    return out
+
+
+def device_ms(torch, fn, kernels=None):
+    """Device time of the kernels ``fn`` launches, per call (None when
+    the trace holds no device time), from ``device_kernels`` (or its
+    given result)."""
+    kernels = device_kernels(torch, fn) if kernels is None else kernels
+    total = sum(ms * k for ms, k in kernels.values())
+    return total if total > 0 else None
+
+
+def attention_bwd_parts(torch, dev, shp):
+    """K4-bwd's bf16 ms a call at ``shp`` with each part count of the GQA
+    sum (a divisor of the group), by CUDA events, after holding each to
+    the default part count's output at the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 96, dev)
+    do = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 97, dev)[0]
+    base = flash_attention_bwd_cuda(q, k, v, do, causal=bool(causal),
+                                    window=window)
+    out = {}
+    for parts in [p for p in range(1, H // KV + 1) if (H // KV) % p == 0]:
+        def call(parts=parts):
+            return flash_attention_bwd_cuda(q, k, v, do, causal=bool(causal),
+                                            window=window, parts=parts)
+        for g, w in zip(call(), base):
+            require(bool(torch.allclose(g.float(), w.float(),
+                                        atol=BF16_ATTN_TOL[0],
+                                        rtol=BF16_ATTN_TOL[1])),
+                    f"attention_bwd with {parts} parts disagrees")
+        out[parts] = time_ms(torch, call)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -520,8 +558,8 @@ def ptxas_summary(text: str) -> str:
             w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
             c = re.search(r"wkv_chunkedILi(\d+)E", line)
             r = re.search(r"rglru_scan(_bwd)?ILb([01])E", line)
-            a = re.search(r"attn_bwd_(dq|dkv)I(f|13__nv_bfloat16)Li(\d+)E",
-                          line)
+            a = re.search(r"attn_bwd_(dq|dkv)IfLi(\d+)E", line)
+            aw = re.search(r"attn_bwd_(dq|dkv)_wgmmaILi(\d+)E", line)
             p = re.search(r"psg_kernelI([xi])Lb([01])E", line)
             if m:
                 name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
@@ -534,8 +572,11 @@ def ptxas_summary(text: str) -> str:
                 name = (f"rglru{' bwd' if r[1] else ''} "
                         f"{'16-byte' if r[2] == '1' else '4-byte'} rows")
             elif a:
-                name = (f"attention bwd {a[1]} "
-                        f"{'f32' if a[2] == 'f' else 'bf16'} hd{a[3]}")
+                name = f"attention bwd {a[1]} f32 hd{a[2]}"
+            elif aw:
+                name = f"attention bwd {aw[1]} bf16 wgmma hd{aw[2]}"
+            elif "attn_bwd_gqa_sum" in line:
+                name = "attention bwd GQA sum"
             elif p:
                 name = (f"psg int{64 if p[1] == 'x' else 32} labels, "
                         f"{'16-byte' if p[2] == '1' else '4-byte'} h")
@@ -692,30 +733,39 @@ def lm_kernel_checks(torch, dev, close):
 
 def bwd_checks(torch, dev, close):
     """The backward kernels against their plain versions: attention's dq,
-    dk, dv (f32 at the forward's 3e-5 / 1e-4, bf16 at one bf16 step) over
-    GQA groups of 1, 2 and 10, a window, T > S and the train step's
-    [16, 10, 256, 256]; RG-LRU's da, db, dh0 within 1e-5 (da within 1e-5
-    times max(1, max |h|): it is g h_{t-1}) at the sweep, T = 1, T = 257,
-    D = 37 and a = 1 and 0.9999; a second call of each bitwise equal."""
+    dk, dv (f32 at the forward's 3e-5 / 1e-4 on the CUDA cores, bf16 at
+    one bf16 step on the tensor cores) over GQA groups of 1, 2 and 10,
+    head sizes 32 to 256, a window, T > S, S off the tiles and the train
+    step's [16, 10, 256, 256] (bf16 also with each part count of the GQA
+    sum); RG-LRU's da, db, dh0 within 1e-5 (da within 1e-5 times max(1,
+    max |h|): it is g h_{t-1}) at the sweep, T = 1, T = 257, D = 37 and
+    a = 1 and 0.9999; a second call of each bitwise equal."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
     f32, bf16 = torch.float32, torch.bfloat16
-    for i, (B, H, KV, S, T, hd, causal, window, dt) in enumerate([
-            (2, 3, 3, 128, 128, 64, True, 0, f32),
-            (1, 4, 2, 100, 300, 128, True, 0, f32),
-            (2, 10, 1, 300, 300, 256, True, 64, f32),
-            (1, 2, 2, 257, 257, 32, False, 0, f32),
-            (2, 10, 1, 300, 300, 256, True, 100, bf16),
-            (16, 10, 1, 256, 256, 256, True, 2048, bf16)]):
+    for i, (B, H, KV, S, T, hd, causal, window, dt, parts) in enumerate([
+            (2, 3, 3, 128, 128, 64, True, 0, f32, None),
+            (1, 4, 2, 100, 300, 128, True, 0, f32, None),
+            (2, 10, 1, 300, 300, 256, True, 64, f32, None),
+            (1, 2, 2, 257, 257, 32, False, 0, f32, None),
+            (2, 3, 3, 128, 128, 64, True, 0, bf16, None),
+            (1, 2, 2, 257, 257, 32, False, 0, bf16, None),
+            (1, 4, 2, 100, 300, 128, True, 0, bf16, None),
+            (2, 4, 2, 130, 130, 64, True, 40, bf16, None),
+            (2, 10, 1, 300, 300, 256, True, 100, bf16, None),
+            (16, 10, 1, 256, 256, 256, True, 2048, bf16, None),
+            (16, 10, 1, 256, 256, 256, True, 2048, bf16, 1),
+            (16, 10, 1, 256, 256, 256, True, 2048, bf16, 2),
+            (16, 10, 1, 256, 256, 256, True, 2048, bf16, 10)]):
         q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dt, 400 + i, dev)
         do = attn_inputs(torch, B, H, KV, S, T, hd, dt, 500 + i, dev)[0]
         got = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
-                                       window=window)
+                                       window=window, parts=parts)
         want = ref.attention_bwd_ref(q, k, v, do, causal=causal,
                                      window=window)
         again = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
-                                         window=window)
+                                         window=window, parts=parts)
         for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
             require(g.dtype == dt and torch.equal(g, g2),
                     f"attention bwd {name}: dtype, or two calls differ")
@@ -1110,7 +1160,8 @@ def profiled(torch, tag, fn, top=6):
             f"x{e.count}" for e in evs[:top]))
     port = [e for e in evs if any(k in e.key for k in PORT_KERNEL_SYMBOLS)]
     log(f"{tag}: the port's kernels: " + ("; ".join(
-        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+        f"({e.self_device_time_total / 1e3 / e.count:.4f} ms a launch)"
         for e in port) or "none"))
     return out
 
@@ -1965,12 +2016,14 @@ def phase_timing(torch, dev, cases, prof_ok):
         lib_ms = time_ms(torch, library) if library else None
         b_ms, b_by = bound(name, shp, itemsize)
         route, src = SOURCES[name]
+        kernels = device_kernels(torch, kern) if prof_ok else None
         row = {"name": row_name, "route": route, "source": src,
                "replaces": TPU_KERNELS[name],
                "launches": int(n_launches), "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_ms,
-               "device_ms": device_ms(torch, kern) if prof_ok else None,
+               "device_ms": (device_ms(torch, kern, kernels) if prof_ok
+                             else None),
                "plain_device_ms": (device_ms(torch, plain)
                                    if prof_ok else None),
                "sm_clock_power_after": clock_power,
@@ -1980,6 +2033,13 @@ def phase_timing(torch, dev, cases, prof_ok):
         if name == "persample_gradnorm":
             row["path_ms"] = time_ms(torch, psg_path(torch, dev, shp,
                                                      prof_ok))
+        if name == "attention_bwd":
+            # the GQA sum's part counts, and the time of each launch
+            row["parts_ms"] = attention_bwd_parts(torch, dev, shp)
+            row["device_kernels"] = kernels
+            log(f"attention_bwd at {shp}: ms a call by parts of the GQA "
+                f"sum {row['parts_ms']}; [device ms a launch, launches a "
+                f"call] {kernels}")
         t = row["device_ms"] or ms
         row["bound_share"] = b_ms / t
         if name == "attention":

@@ -10,8 +10,9 @@ so a measurement can replay the main path's shapes.
 CUDA C++ kernels are compiled on first use, from the sources under
 ``csrc/``, by ``nvcc`` into a shared library with a plain C interface
 (loaded with ``ctypes``) under ``.torch_ext_build/`` at the root of the
-checkout.  The library's name carries a hash of its source and flags, so
-an edited source is rebuilt and never loaded stale.
+checkout.  The library's name carries a hash of its source, of every
+header it includes from ``csrc/`` and of the flags, so an edited source
+or header is rebuilt and never loaded stale.
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,11 +62,25 @@ def _nvcc() -> str:
     return found
 
 
+def _sources(src: Path, seen: list) -> list:
+    """``src`` and, depth first, every ``#include "..."`` of it that lies
+    in ``csrc/``, each once."""
+    seen.append(src)
+    for name in re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(),
+                           re.MULTILINE):
+        dep = CSRC / name
+        if dep.exists() and dep not in seen:
+            _sources(dep, seen)
+    return seen
+
+
 @functools.cache
 def load_library(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` (once per content hash) and load it."""
+    """Build ``csrc/<source>`` (once per content hash of it and its
+    headers) and load it."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in
+                                     _sources(src, []))
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = BUILD_DIR / f"{src.stem}-{digest[:16]}.so"
     if not out.exists():

@@ -75,12 +75,16 @@
 // Shared memory is 99 KB at hd = 256, acc 64 registers a thread.  It is
 // bound by the 67 TFLOP/s f32 rate.
 //
-// Plain C interface, loaded with ctypes: the launcher returns
-// cudaGetLastError() and the Python wrapper raises when it is not 0.
+// Plain C interface, loaded with ctypes.  The launcher makes `device`
+// current for the launch and restores the caller's device after it, and
+// returns cudaGetLastError() (or -1 for a head size or dtype it does not
+// take); the Python wrapper raises when it is not 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -256,12 +260,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kBM = 128;  // query rows a block: two warpgroups of 64
 constexpr int kBN = 64;   // keys a tile
 constexpr int kThreads = 256;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory: every tile is kept in 128-byte column blocks of 64
 // elements (hd 32 takes one block, half of it unused), each block R rows
@@ -274,122 +275,6 @@ struct Tiles {
   // Q, two stages of K and V, and room to align the start to 1024 bytes
   static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c (8 elements) of row r in a tile of R
-// rows: the chunk's 128-byte column block, its row, and its place in
-// the row XORed with r % 8 (the 128-byte swizzle of wgmma and TMA).
-__device__ __forceinline__ uint32_t swizzled(int r, int c, int R) {
-  return (uint32_t)((c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  // src-size 0 fills the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows r0 .. r0 + R - 1 of a [rows, HD] matrix (row stride in elements)
-// into a swizzled tile; rows at or past nrows are zeros.
-template <int HD, int R>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          long long row_stride, int r0,
-                                          int nrows) {
-  constexpr int kChunks = HD / 8;
-#pragma unroll
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    const bool in = r0 + r < nrows;
-    cp_async16(dst + swizzled(r, c, R),
-               in ? src + (r0 + r) * row_stride + c * 8 : src, in);
-  }
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (in 16-byte units) and layout type 1, the 128-byte
-// swizzle.  K-major (Q, K): rows of 128 bytes, the next 8 rows 1024 bytes
-// on.  MN-major (V through the transpose bit): the next 8 keys 1024 bytes
-// on, the next 64 columns one column block on.
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving accesses of an accumulator across the
-// asynchronous wgmma that writes it
-__device__ __forceinline__ void hold(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define WG_ACC                                                             \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31}"
-#define WG_OUT(d)                                                          \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
-      "+f"(d[31])
-
-// d = A B (accumulate 0) or d += A B: m64n64k16, A [64 x 16] and B
-// [16 x 64] K-major in shared memory.  Thread t of the warpgroup holds
-// d[4 i + 2 h + c] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 i + 2 (t % 4) + c].
-__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b,
-                                       int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_OUT(d)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// d += A B: m64n64k16, A [64 x 16] bf16 in registers (a[0..3], laid out
-// as d's pairs of columns: a[2 j + h] = A rows + 8 h, columns 8 j + 2 (t %
-// 4) + {0, 1}), B [16 x 64] MN-major in shared memory (transpose bit).
-__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t* a,
-                                       uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_ACC
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_OUT(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -425,10 +310,11 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t0 = k_begin / kBN;
   const int n = k_end > k_begin ? (k_end + kBN - 1) / kBN - t0 : 0;
 
-  load_tile<HD, kBM>(q_s, qb, qs.s, q0, S);
+  load_tile<HD, kBM, kThreads>(q_s, qb, qs.s, q0, S);
   if (n > 0) {
-    load_tile<HD, kBN>(kv_s, kb, ks.s, t0 * kBN, Tk);
-    load_tile<HD, kBN>(kv_s + L::kKVBytes, vb, vs.s, t0 * kBN, Tk);
+    load_tile<HD, kBN, kThreads>(kv_s, kb, ks.s, t0 * kBN, Tk);
+    load_tile<HD, kBN, kThreads>(kv_s + L::kKVBytes, vb, vs.s, t0 * kBN,
+                                 Tk);
   }
   cp_commit();
 
@@ -452,8 +338,9 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // everyone's copies; tile it - 1 fully consumed
     if (it + 1 < n) {
       const uint32_t nxt = kv_s + ((it + 1) & 1) * 2 * L::kKVBytes;
-      load_tile<HD, kBN>(nxt, kb, ks.s, kt + kBN, Tk);
-      load_tile<HD, kBN>(nxt + L::kKVBytes, vb, vs.s, kt + kBN, Tk);
+      load_tile<HD, kBN, kThreads>(nxt, kb, ks.s, kt + kBN, Tk);
+      load_tile<HD, kBN, kThreads>(nxt + L::kKVBytes, vb, vs.s, kt + kBN,
+                                   Tk);
     }
     cp_commit();
 
@@ -516,13 +403,7 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // P as two bf16 operands, hi + lo, in the layout of its accumulator
     uint32_t hi[16], lo[16];
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[2 * r], s[2 * r + 1]);
-      hi[r] = pack(h2);
-      lo[r] = pack(__floats2bfloat162_rn(s[2 * r] - __low2float(h2),
-                                         s[2 * r + 1] - __high2float(h2)));
-    }
+    split(s, hi, lo);
 
     // O += P V, 16 keys and 64 output columns an instruction
 #pragma unroll
@@ -646,22 +527,32 @@ extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
 
 // dtype 0 is f32 (CUDA cores), 1 is bf16 (tensor cores; q, k and v
 // 16-byte aligned with row, head and batch strides in multiples of 8);
-// head sizes 32, 64, 128 and 256.  Any other returns -1.
+// head sizes 32, 64, 128 and 256.  Any other returns -1.  `device` is the
+// tensors' device and `stream` a stream on it.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
     int KV, int S, int T, int hd, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, int causal, int window, float scale,
-    void* stream) {
+    int device, void* stream) {
+  if (dtype != 0 && dtype != 1) return -1;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return dispatch_hd<0>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs, os,
-                          causal, window, scale, st);
-  if (dtype == 1)
-    return dispatch_hd<1>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs, os,
-                          causal, window, scale, st);
-  return -1;
+  const int rc =
+      dtype == 0 ? dispatch_hd<0>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
+                                  os, causal, window, scale, st)
+                 : dispatch_hd<1>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
+                                  os, causal, window, scale, st);
+  if (prev != device) {
+    const cudaError_t back = cudaSetDevice(prev);
+    if (rc == 0 && back != cudaSuccess) return (int)back;
+  }
+  return rc;
 }

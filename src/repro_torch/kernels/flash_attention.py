@@ -9,17 +9,25 @@ cores.
 
   * ``flash_attention_cuda`` q [B, H, S, hd], k/v [B, KV, T, hd] (KV
     divides H; f32 or bf16, all one dtype) -> [B, H, S, hd] in q's dtype.
-  * ``flash_attention_bwd_cuda`` its backward (``csrc/flash_attention_bwd.cu``,
-    on the CUDA cores; the JAX package has none, it differentiates its
-    plain attention): q, k, v and dO -> (dq, dk, dv) in the inputs'
-    dtype, summed in f32; the GQA sum over a key head's query heads in a
-    fixed order, without atomics.
+  * ``flash_attention_bwd_cuda`` its backward (``csrc/flash_attention_bwd.cu``;
+    the JAX package has none, it differentiates its plain attention): q,
+    k, v and dO -> (dq, dk, dv) in the inputs' dtype, summed in f32, the
+    GQA sum over a key head's query heads in a fixed order, without
+    atomics.  Two routes as the forward's: bf16 on the tensor cores (P
+    and dS split into bf16 hi + lo; the GQA sum spread over ``parts``
+    blocks a key head, ``gqa_parts``), f32 on the CUDA cores.
 
 The tensors may be strided views (only the last axis must be
 contiguous): the model passes its [B, S, H, hd] projections transposed,
 and gets back a [B, H, S, hd] view of [B, S, H, hd] memory.  The bf16
 route copies rows in 16-byte pieces, so there the data must be 16-byte
-aligned and every stride a multiple of 8 elements.
+aligned and every stride a multiple of 8 elements (``tc_aligned``); it
+raises ``ValueError`` otherwise and never takes the CUDA-core route.
+
+The launch path is short: one validation pass, the outputs' allocation,
+the current stream's raw handle, one ``ctypes`` call whose ``argtypes``
+were set once; the C launcher makes the tensors' device current and
+restores the caller's, so no ``torch.cuda.device`` context is entered.
 """
 from __future__ import annotations
 
@@ -40,7 +48,7 @@ def _launcher():
     fn = load_library("flash_attention.cu").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -48,7 +56,7 @@ def _launcher():
 @functools.cache
 def _bwd_launcher():
     fn = load_library("flash_attention_bwd.cu").flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -79,24 +87,52 @@ def _check(q, k, v, name):
     return B, H, KV, S, T, hd
 
 
+def tc_aligned(x: torch.Tensor) -> bool:
+    """Whether the tensor-core route can copy ``x``'s rows in 16-byte
+    pieces: 16-byte aligned data, batch, head and row strides in
+    multiples of 8 elements (a stride of a size-1 axis is never used)."""
+    return x.data_ptr() % 16 == 0 and not any(
+        x.stride(i) % 8 for i in range(3) if x.shape[i] > 1)
+
+
+def _require_tc_aligned(xs, names):
+    if not all(tc_aligned(x) for x in xs):
+        raise ValueError(f"bf16 attention kernel needs 16-byte aligned "
+                         f"{names} with strides in multiples of 8 elements")
+
+
+@functools.cache
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def gqa_parts(B: int, KV: int, T: int, group: int, sms: int) -> int:
+    """Parts the bf16 dk/dv pass splits a key head's group of ``group``
+    query heads into: the fewest (a divisor of the group) that give two
+    blocks an SM over the 64-key tiles, else the whole group (a block a
+    query head).  One part sums the group inside a block; more write f32
+    partial sums that a third launch adds in order."""
+    blocks = -(-T // 64) * B * KV
+    for parts in range(1, group + 1):
+        if group % parts == 0 and blocks * parts >= 2 * sms:
+            return parts
+    return group
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_cuda")
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % 16 or any(x.stride(i) % 8 for i in range(3)
-                                     if x.shape[i] > 1) for x in (q, k, v)):
-        raise ValueError("bf16 attention kernel needs 16-byte aligned q, k, "
-                         "v with strides in multiples of 8 elements")
+    if q.dtype == torch.bfloat16:
+        _require_tc_aligned((q, k, v), "q, k, v")
     out = torch.empty((B, S, H, hd), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if B * H * S == 0:
         return out
-    launch = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, H, KV, S, T, hd, DTYPES[q.dtype],
-                     *(x.stride(i) for x in (q, k, v, out) for i in range(3)),
-                     int(causal), int(window), 1.0 / math.sqrt(hd), stream)
+    device = q.get_device()
+    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), B, H, KV, S, T, hd, DTYPES[q.dtype],
+                      *(x.stride(i) for x in (q, k, v, out) for i in range(3)),
+                      int(causal), int(window), 1.0 / math.sqrt(hd), device,
+                      torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"attention launch failed: cudaError {err}")
     count_launch("attention", q.shape, k.shape, (int(causal), int(window)))
@@ -104,10 +140,11 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
-                             window: int = 0):
+                             window: int = 0, parts: int | None = None):
     """Gradients of ``flash_attention_cuda(q, k, v)`` for the output's
     gradient ``do`` [B, H, S, hd] -> (dq, dk, dv) in the inputs' dtype
-    (each strided as its input, when that is dense)."""
+    (each strided as its input, when that is dense).  ``parts`` (bf16
+    only, a divisor of H / KV) overrides ``gqa_parts``'s choice."""
     B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_bwd_cuda")
     if not (isinstance(do, torch.Tensor) and do.is_cuda) \
             or do.shape != q.shape or do.dtype != q.dtype \
@@ -117,18 +154,31 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
     if causal and T < S:
         raise ValueError(f"attention backward: with causal and T {T} < S "
                          f"{S} the first rows see no key")
+    device = q.get_device()
+    group = H // KV
+    if q.dtype == torch.bfloat16:
+        _require_tc_aligned((q, k, v, do), "q, k, v, do")
+        if parts is None:
+            parts = gqa_parts(B, KV, T, group, _sm_count(device))
+    if parts is None:
+        parts = 1
+    if parts < 1 or group % parts or (parts > 1 and q.dtype != torch.bfloat16):
+        raise ValueError(f"attention backward: {parts} parts of a group of "
+                         f"{group} (bf16 only)")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if B * H * S * T == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     stats = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    partial = (torch.empty(2 * parts * B * KV * T * hd, dtype=torch.float32,
+                           device=q.device) if parts > 1 else None)
     strides = (ctypes.c_longlong * 21)(*(
         x.stride(i) for x in (q, k, v, do, dq, dk, dv) for i in range(3)))
-    device = q.get_device()
     err = _bwd_launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-        B, H, KV, S, T, hd, DTYPES[q.dtype], strides, int(causal),
-        int(window), 1.0 / math.sqrt(hd), device,
+        None if partial is None else partial.data_ptr(), B, H, KV, S, T, hd,
+        DTYPES[q.dtype], parts, strides, int(causal), int(window),
+        1.0 / math.sqrt(hd), device,
         torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"attention backward launch failed: cudaError "

@@ -60,11 +60,14 @@ class AttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         from repro_torch.kernels.flash_attention import (
-            flash_attention_bwd_cuda)
+            flash_attention_bwd_cuda, tc_aligned)
         q, k, v = ctx.saved_tensors
         causal, window = ctx.mask
-        if do.stride(3) != 1:
-            do = do.contiguous()
+        # the kernel reads a contiguous last axis, and on the bf16 route
+        # rows in 16-byte pieces: a dense copy of any other dO
+        if do.stride(3) != 1 or (do.dtype == torch.bfloat16
+                                 and not tc_aligned(do)):
+            do = do.clone(memory_format=torch.contiguous_format)
         return (*flash_attention_bwd_cuda(q, k, v, do, causal=causal,
                                           window=window), None, None)
 

@@ -506,13 +506,20 @@ def test_attention_bwd_kernel_on_card(cuda, B, H, KV, S, T, hd, causal,
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,H,KV,S,T,hd", [(1, 2, 2, 257, 257, 32),
                                            (2, 10, 1, 300, 300, 256),
-                                           (1, 4, 2, 100, 300, 128)])
+                                           (1, 4, 2, 100, 300, 128),
+                                           # GQA groups of 1 and 2 at head
+                                           # sizes 32, 64 and 128
+                                           (2, 3, 3, 128, 128, 64),
+                                           (1, 2, 2, 100, 100, 128),
+                                           (2, 4, 2, 130, 130, 32),
+                                           (1, 4, 2, 256, 256, 64),
+                                           (2, 2, 1, 70, 200, 128)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 100)])
 def test_attention_bwd_kernel_bf16_on_card(cuda, B, H, KV, S, T, hd, causal,
                                            window):
-    """bf16 inputs: the f32 sums rounded to bf16 once, as the plain
-    version's autograd rounds its f32 gradients: one bf16 step apart
-    (the forward's BF16_ATTN_TOL)."""
+    """bf16 inputs (the tensor-core route): the f32 sums rounded to bf16
+    once, as the plain version's autograd rounds its f32 gradients: one
+    bf16 step apart (the forward's BF16_ATTN_TOL)."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     q, k, v, do = attn_bwd_inputs(np.random.default_rng(S + hd), B, H, KV,
                                   S, T, hd, torch.bfloat16, cuda)
@@ -542,6 +549,65 @@ def test_attention_bwd_kernel_repeatable_and_refusals_on_card(cuda):
                                   64, torch.float32, cuda)
     with pytest.raises(ValueError, match="see no key"):
         flash_attention_bwd_cuda(q, k, v, do, causal=True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("parts", [1, 2, 5, 10])
+def test_attention_bwd_kernel_bf16_parts_on_card(cuda, parts):
+    """The GQA sum over every part count of ten query heads on one key
+    head (one part: the group inside a block; more: f32 partial sums
+    added by a third launch), at the train step's shape and the bf16
+    tolerance, each twice bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(7), 4, 10, 1, 256,
+                                  256, 256, torch.bfloat16, cuda)
+    got = flash_attention_bwd_cuda(q, k, v, do, parts=parts)
+    again = flash_attention_bwd_cuda(q, k, v, do, parts=parts)
+    torch.cuda.synchronize()
+    want = tref.attention_bwd_ref(q, k, v, do)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert torch.equal(g, g2), name
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=BF16_ATTN_TOL[0],
+                                   rtol=BF16_ATTN_TOL[1], msg=name)
+
+
+@pytest.mark.requires_cuda
+def test_attention_bwd_kernel_bf16_refuses_unaligned_rows(cuda):
+    """No fallback to the CUDA cores: bf16 data off 16-byte alignment, or
+    a row stride off a multiple of 8 elements, raises."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    x = torch.zeros(1, 1, 9 * 64 + 4, dtype=torch.bfloat16, device=cuda)
+    q = x[..., 4:].view(1, 1, 9, 64)           # 8 bytes past 16-byte alignment
+    ok = torch.zeros(1, 1, 9, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(q, ok, ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(ok, ok, ok, q)
+    rows = torch.zeros(1, 1, 9, 68, dtype=torch.bfloat16,
+                       device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd_cuda(ok, rows, ok, ok)
+
+
+@pytest.mark.requires_cuda
+def test_attention_fn_bf16_copies_unaligned_do_on_card(cuda):
+    """``ops.AttentionFn.backward`` hands the bf16 kernel a dense copy of
+    a gradient whose data sits off 16-byte alignment."""
+    from repro_torch.kernels import ops
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(9), 1, 2, 1, 64, 64,
+                                  64, torch.bfloat16, cuda)
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = ops.attention(*leaves, causal=True)
+    flat = torch.zeros(do.numel() + 4, dtype=torch.bfloat16, device=cuda)
+    odd = flat[4:].view(do.shape)              # 8 bytes past alignment
+    odd.copy_(do)
+    got = torch.autograd.grad(out, leaves, odd)
+    want = tref.attention_bwd_ref(q, k, v, do, causal=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=BF16_ATTN_TOL[0],
+                                   rtol=BF16_ATTN_TOL[1])
 
 
 def close_rglru_bwd(got, want, h):
