@@ -34,7 +34,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      shape, there also with 1, 2 and 10 parts of the GQA sum) and the
      written-out reverse RG-LRU recurrence (1e-5; da, which is g h_{t-1},
      at 1e-5 x max(1, max |h|); a = 1 and 0.9999), each twice, bitwise
-     equal;
+     equal; and the WKV backward (K5-bwd, from the forward's chunk
+     states) against the plain backward in f64 at the rwkv6-3b train
+     shape [16, 256, 40, 64], at T = 250 and at hd 128: on each gradient
+     at most ``WKV_BWD_ERR_MULT`` (16) times the f32 plain version's
+     error, two calls bitwise equal;
   3. solves 100 seeded random P1 problems with the torch scheduler on the
      card (25 at each of V = 16 and 64 for C = 10 and C = 100) and
      requires the numpy solvers' masks and iteration counts;
@@ -51,8 +55,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      ``fedcgd-fscd`` trainer on the same seed must give a bitwise-equal
      history (records, masks, iteration counts, sigmas) and bitwise-equal
      params after its 3 rounds; then one more round of each, held to the
-     same checks, under ``torch.profiler`` (the device's busy share of the
-     round and its longest kernels);
+     same checks, under ``repro_torch.obs.profile_rounds`` after a
+     warm-up round (the device's busy share of the round, its longest
+     kernels and the split by the round's phases);
   5. drives the same path batched over 8 cells: ``MultiCellTrainer``
      (seeds 0-7, phase 4's world and config, ``num_cells=8``), 3 rounds
      of each scheduler; every cell's mask and iteration count must equal
@@ -87,22 +92,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      reduced config (2e-3 * scale, the bound of the JAX package's
      tests/test_models_smoke.py) and in bf16 on the full ones and on
      their first layers (``BF16_CONSISTENCY``, ``LM_DEPTHS``);
-  8. trains recurrentgemma-2b at published width and depth (bf16, each
-     layer rematerialised) through ``launch.federated_lm_silos.run``:
-     FedCGD over 8 silos of 2 sequences of 256 tokens, 3 rounds of one
-     schedule-weighted train step (the chunked CE: 256 x 256000 >
-     2**24); every round's loss and grad norm finite, the attention and
-     RG-LRU kernels launched 16 and 36 times a round (the forward and its
-     recompute) and their backward kernels 8 and 18 times, nothing else;
-     a second run on the same seed bitwise equal (metrics, masks,
-     params); one plain ``make_train_step`` step, and one under the
-     profiler; peak memory logged.  Before it: the reduced f32 step on
-     the card against the same step on the CPU (loss within 1e-5
-     relative, params within 1e-4 in L2 a leaf), and rwkv6-3b's step on
-     the card raising (the WKV kernel has no backward yet);
+  8. trains recurrentgemma-2b, then rwkv6-3b, at published width and
+     depth (bf16, each layer rematerialised) through
+     ``launch.federated_lm_silos.run``: FedCGD over 8 silos of 2
+     sequences of 256 tokens, 3 rounds of one schedule-weighted train
+     step (recurrentgemma-2b's CE chunked: 256 x 256000 > 2**24;
+     rwkv6-3b's whole: 256 x 65536 = 2**24); every round's loss and grad
+     norm finite; a round launches recurrentgemma-2b's attention and
+     RG-LRU kernels 16 and 36 times (the forward and its recompute) and
+     their backward kernels 8 and 18 times, rwkv6-3b's WKV kernel 64
+     times and its backward 32 times, nothing else; a second run on the
+     same seed bitwise equal (metrics, masks, params); one plain
+     ``make_train_step`` step, and one profiled through
+     ``repro_torch.obs.profile_rounds``; peak memory logged.  Before each:
+     the reduced f32 step on the card against the same step on the CPU
+     (loss within 1e-5 relative, params within 1e-4 in L2 a leaf);
   9. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes, the backward kernels at the
-     train step's, SDPA's backward alone as attention's yardstick;
+     train step's (K5-bwd from the forward's chunk states, no library
+     call computing its function), SDPA's backward alone as attention's
+     yardstick;
      K1-K3 also at their 8-cell
      shapes, rows ``<name>@C8``, K1/K2 at the ResNet rounds' 100
      classes, rows ``<name>@C100``, and K3 at the ResNet's single-cell
@@ -169,11 +178,12 @@ TPU_KERNELS = {
     # function it differentiates
     "attention_bwd": "src/repro/kernels/flash_attention.py:77",
     "rglru_bwd": "src/repro/kernels/rglru_scan.py:50",
+    "wkv_bwd": "src/repro/kernels/rwkv_scan.py:75",
 }
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
 # the kernels' symbols in a profiler trace
 PORT_KERNEL_SYMBOLS = ("wemd_", "psg_kernel", "flash_", "wkv_chunked",
-                       "rglru_scan", "attn_bwd_")
+                       "rglru_scan", "attn_bwd_", "wkv_bwd_")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("cuda", CSRC + "wemd.cu"),
@@ -184,7 +194,18 @@ SOURCES = {
     "rglru": ("cuda", CSRC + "rglru_scan.cu"),
     "attention_bwd": ("cuda", CSRC + "flash_attention_bwd.cu"),
     "rglru_bwd": ("cuda", CSRC + "rglru_scan.cu"),
+    "wkv_bwd": ("cuda", CSRC + "wkv_bwd.cu"),
 }
+# K5-bwd against the plain backward in f64: on each gradient the kernel's
+# max abs error at most WKV_BWD_ERR_MULT times the f32 plain version's
+# (or 2^-24 of the gradient's largest entry, where that is larger).  The
+# first card run read ratios of 0.55-8.4 (8.4: dw at hd 128; 0.75-3.0 at
+# the train shape): the kernel's decays go through ex2/lg2.approx and its
+# sums run in other orders (tests/test_torch_kernels_cuda.py's bound).
+WKV_BWD_ERR_MULT = 16
+# the rwkv6-3b train shape and a tail (T off the chunk of 16), hd 64 and 128
+WKV_BWD_SHAPES = [(16, 256, 40, 64), (16, 250, 40, 64), (4, 256, 20, 128),
+                  (4, 250, 20, 128)]
 # LM serving phase: batch, prompt (> the 2048 window), sampled tokens,
 # teacher-forced decode steps of the consistency check
 LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK = 4, 3072, 32, 8
@@ -373,6 +394,14 @@ def bound(name, shapes, itemsize=4):
         (B, T, D), = shapes
         nbytes = 4 * (5 * B * T * D + 3 * B * D)
         ops = 3 * B * T * D
+    elif name == "wkv_bwd":
+        # reads r, k, v, w, dy, u, the chunk states and dS_T, writes dr,
+        # dk, dv, dw, du and dS_0; the design's operations a chunk
+        (B, T, H, hd), = shapes
+        nch = -(-T // 16)
+        nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd
+                      + (B * nch + 2 * B) * H * hd * hd)
+        ops = B * H * nch * wkv_bwd_chunk_ops(hd)
     elif name == "attention":
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
         nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
@@ -404,6 +433,18 @@ def bound(name, shapes, itemsize=4):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def wkv_bwd_chunk_ops(hd, L=16):
+    """f32 operations of one chunk of one (batch, head) in
+    ``csrc/wkv_bwd.cu``, counted from its loops (an FMA is two; ex2 and
+    lg2 one each): the decays, B, SD and GV, X, A and du's part, then per
+    (t, d) dr, dk and dw, per (t, j) dv, and G's update."""
+    pairs = L * (L - 1) // 2
+    per_d = sum(3 * t + 80 + 40 * (L - 1 - t) for t in range(L))
+    return (6 * L * hd + 2 * L * L * hd + 4 * L * hd * hd + 2 * hd * hd
+            + 4 * hd * pairs + 3 * L * hd + 3 * L * hd + per_d * hd
+            + (2 * L * hd + L * (L + 1)) * hd + (1 + 2 * L) * hd * hd)
 
 
 def calls_per_rep(torch, fn, most=50, target_s=0.05):
@@ -520,13 +561,14 @@ def phase_build(torch, dev):
     from repro_torch.kernels import rwkv_scan as K5
     from repro_torch.kernels import wemd_swap as K12
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:     # one nvcc per source, at once
+    with ThreadPoolExecutor(7) as pool:     # one nvcc per source, at once
         for f in [pool.submit(fn) for fn in (K12._launchers, K3._launcher,
                                              K4._launcher, K4._bwd_launcher,
-                                             K5._launcher, K6._launcher)]:
+                                             K5._launcher, K5._bwd_launcher,
+                                             K6._launcher)]:
             f.result()
     K6._bwd_launcher()                      # rglru_scan.cu's second entry
-    log(f"build: nvcc of 6 sources in parallel "
+    log(f"build: nvcc of 7 sources in parallel "
         f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
             f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items()) + ")")
     log("ptxas, wemd.cu: " + ptxas_summary(
@@ -538,8 +580,8 @@ def phase_build(torch, dev):
             f"{route} hd{hd} {lib.flash_attention_smem_bytes(hd, dt)} B"
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
-    for src in ("flash_attention_bwd.cu", "wkv.cu", "rglru_scan.cu",
-                "persample_gradnorm.cu"):
+    for src in ("flash_attention_bwd.cu", "wkv.cu", "wkv_bwd.cu",
+                "rglru_scan.cu", "persample_gradnorm.cu"):
         log(f"ptxas, {src}: "
             + ptxas_summary(common.BUILD_LOGS.get(src, "")))
 
@@ -557,6 +599,7 @@ def ptxas_summary(text: str) -> str:
             m = re.search(r"flash_(wgmma|kernel)ILi(\d+)E", line)
             w = re.search(r"wemd_(add|swap)_kernelI([fd])E", line)
             c = re.search(r"wkv_chunkedILi(\d+)E", line)
+            cb = re.search(r"wkv_bwd_chunkedILi(\d+)E", line)
             r = re.search(r"rglru_scan(_bwd)?ILb([01])E", line)
             a = re.search(r"attn_bwd_(dq|dkv)IfLi(\d+)E", line)
             aw = re.search(r"attn_bwd_(dq|dkv)_wgmmaILi(\d+)E", line)
@@ -568,6 +611,10 @@ def ptxas_summary(text: str) -> str:
                 name = f"{w[1]} {'f64' if w[2] == 'd' else 'f32'} inputs"
             elif c:
                 name = f"wkv hd{c[1]}"
+            elif cb:
+                name = f"wkv bwd hd{cb[1]}"
+            elif "wkv_bwd_du" in line:
+                name = "wkv bwd du sum"
             elif r:
                 name = (f"rglru{' bwd' if r[1] else ''} "
                         f"{'16-byte' if r[2] == '1' else '4-byte'} rows")
@@ -729,6 +776,7 @@ def lm_kernel_checks(torch, dev, close):
     wkv_checks(torch, dev, close)
     rglru_checks(torch, dev, close)
     bwd_checks(torch, dev, close)
+    wkv_bwd_checks(torch, dev)
 
 
 def bwd_checks(torch, dev, close):
@@ -790,6 +838,50 @@ def bwd_checks(torch, dev, close):
         close("rglru_bwd.da", got[0], want[0], atol, 1e-5)
         close("rglru_bwd", got[1], want[1], 1e-5, 1e-5)
         close("rglru_bwd", got[2], want[2], 1e-5, 1e-5)
+
+
+def wkv_bwd_inputs(torch, B, T, H, hd, seed, device):
+    """``wkv_inputs`` and the outputs' gradients dy, dS_T ~ N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    return (*wkv_inputs(torch, B, T, H, hd, seed, device),
+            torch.randn((B, T, H, hd), generator=g, device=device),
+            torch.randn((B, H, hd, hd), generator=g, device=device))
+
+
+def wkv_bwd_checks(torch, dev):
+    """K5-bwd from the forward's chunk states against the plain backward
+    in f64 at ``WKV_BWD_SHAPES``: each gradient's max abs error at most
+    ``WKV_BWD_ERR_MULT`` times the f32 plain version's (logged as the
+    ratio); two calls bitwise equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    names = ("dr", "dk", "dv", "dw", "du", "dstate")
+    for i, (B, T, H, hd) in enumerate(WKV_BWD_SHAPES):
+        r, k, v, w, u, s0, dy, ds = wkv_bwd_inputs(torch, B, T, H, hd,
+                                                   720 + i, dev)
+        chunks = wkv_cuda(r, k, v, w, u, s0, save_chunks=True)[2]
+        got = wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds)
+        again = wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"wkv_bwd at {(B, T, H, hd)}: two calls differ")
+        ratios = {}
+        for name, g, p, t in zip(names, got,
+                                 ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, ds),
+                                 ref.wkv_bwd_ref(*(x.double() for x in (
+                                     r, k, v, w, u, s0, dy, ds)))):
+            err = float((g.double() - t).abs().max())
+            floor = max(float((p.double() - t).abs().max()),
+                        2.0 ** -24 * float(t.abs().max()))
+            ratios[name] = err / floor
+            require(err <= WKV_BWD_ERR_MULT * floor,
+                    f"wkv_bwd {name} at {(B, T, H, hd)}: max abs err "
+                    f"{err:.3g} over {WKV_BWD_ERR_MULT} x the f32 plain "
+                    f"version's {floor:.3g}")
+        log(f"wkv_bwd at {(B, T, H, hd)} vs f64: kernel error over the f32 "
+            f"plain version's " + ", ".join(
+                f"{k} {v:.2f}" for k, v in ratios.items())
+            + f" (bound {WKV_BWD_ERR_MULT}); two calls bitwise equal")
 
 
 def rglru_checks(torch, dev, close):
@@ -1119,21 +1211,24 @@ def check_same_run(torch, a, b, tag):
 
 
 def profile_round(torch, sched_name, tr, solve) -> tuple:
-    """One more round (index 4: no evaluation in it) under
-    ``torch.profiler``, held to ``check_round``'s checks: the device's
-    busy share of the round's wall time (summed kernel and copy time
-    over the host clock, the profiler's own cost included, so a lower
-    bound), the kernels that took longest and the port's kernel launches
-    in the round.  Returns the round's sigma errors."""
+    """Two more rounds, the second (index 4: no evaluation in it) under
+    ``repro_torch.obs.profile_rounds`` (round 3 its warm-up), held to
+    ``check_round``'s checks: the device's busy share of the round's wall
+    time, the kernels that took longest, the split by the round's ``obs``
+    phases (``log_profile``) and the port's kernel launches in the two
+    rounds.  Returns the profiled round's sigma errors."""
     import collections
 
     from repro_torch.kernels import common
+    from repro_torch.obs import profile_rounds
     before = collections.Counter(common.LAUNCHES)
-    rec = profiled(torch, f"{sched_name} profiled round",
-                   lambda: tr.run_round(4))
-    log(f"{sched_name} profiled round: kernel launches "
+    tag = f"{sched_name} profiled round"
+    prof = profile_rounds(tr, 1, TRACE_DIR /
+                          tag.replace(" ", "_"), warmup=1)
+    log_profile(tag, prof, top=6)
+    log(f"{tag}: kernel launches in it and its warm-up "
         f"{dict(common.LAUNCHES - before)}")
-    return check_round(torch, tr, solve, f"{sched_name} profiled round", rec)
+    return check_round(torch, tr, solve, tag, tr.history[-1])
 
 
 def profiled(torch, tag, fn, top=6):
@@ -1605,16 +1700,26 @@ def profile_serving(torch, model, params, prompt, arch):
              lambda: serve(params, cache, {"tokens": tok}))
 
 
-# LM training phase: recurrentgemma-2b at published width and depth (bf16,
-# remat), FedCGD over 8 silos of 2 sequences of 256 tokens (4096 tokens a
-# round, S x vocab = 65.5 M > 2**24: the chunked CE), 3 rounds
-TRAIN_ARCH = "recurrentgemma-2b"
+# LM training phase: recurrentgemma-2b and rwkv6-3b at published width and
+# depth (bf16, remat), FedCGD over 8 silos of 2 sequences of 256 tokens
+# (4096 tokens a round), 3 rounds.  recurrentgemma-2b's S x vocab = 65.5 M
+# > 2**24 takes the chunked CE; rwkv6-3b's 256 x 65536 = 2**24 exactly is
+# not over it, so it takes the whole [B, S, V] f32 logits (1 GiB)
+TRAIN_ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
 TRAIN_SILOS, TRAIN_PER_SILO, TRAIN_SEQ, TRAIN_ROUNDS = 8, 2, 256, 3
 # launches a train step: with remat every layer's forward runs again in
-# the backward, so the forward kernels launch twice
-TRAIN_STEP_LAUNCHES = {"attention": 16, "attention_bwd": 8, "rglru": 36,
-                       "rglru_bwd": 18}
+# the backward, so the forward kernels launch twice (the WKV forward saves
+# its chunk states both times: the checkpoint drops the first pass's, the
+# recompute's feed K5-bwd), and each backward kernel once a layer (K4-bwd
+# is three launches, K5-bwd two, each counted once)
+TRAIN_STEP_LAUNCHES = {
+    "recurrentgemma-2b": {"attention": 16, "attention_bwd": 8, "rglru": 36,
+                          "rglru_bwd": 18},
+    "rwkv6-3b": {"wkv": 64, "wkv_bwd": 32}}
 TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL = 1e-5, 1e-4   # card vs CPU, f32
+# profile_rounds' traces (tens of MB a train step), in the ignored build
+# directory
+TRACE_DIR = ROOT / ".torch_ext_build" / "traces"
 
 
 def _rel_l2(torch, got, want):
@@ -1622,9 +1727,9 @@ def _rel_l2(torch, got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def train_card_vs_cpu(torch, dev):
-    """The reduced f32 recurrentgemma-2b step on the card (K4, K6 and
-    their backward kernels) against the same step on the CPU (the plain
+def train_card_vs_cpu(torch, dev, arch):
+    """The reduced f32 step of ``arch`` on the card (its kernels and their
+    backward kernels) against the same step on the CPU (the plain
     versions): the loss within 1e-5 relative, every new param within 1e-4
     relative in L2."""
     import numpy as np
@@ -1632,7 +1737,7 @@ def train_card_vs_cpu(torch, dev):
     from repro_torch.configs import get_config
     from repro_torch.fl.distributed import make_train_step
     from repro_torch.models import transformer as T
-    cfg = get_config(TRAIN_ARCH).reduced()
+    cfg = get_config(arch).reduced()
     params = T.init(torch.Generator().manual_seed(1), cfg)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (4, 41)).astype(np.int32))
@@ -1665,47 +1770,75 @@ def _paths(tree, prefix=""):
             yield prefix + k, tree[k]
 
 
-def rwkv_refuses(torch, dev):
-    """rwkv6-3b's train step on the card raises NotImplementedError (the
-    WKV kernel has no backward yet) instead of dropping its gradient."""
-    from repro_torch.configs import get_config
-    from repro_torch.fl.distributed import make_train_step
-    from repro_torch.models import transformer as T
-    cfg = get_config("rwkv6-3b").reduced()
-    params = T.init(torch.Generator(device=dev).manual_seed(2), cfg)
-    toks = torch.randint(0, cfg.vocab_size, (2, 9), device=dev)
-    try:
-        make_train_step(cfg)(params, {"tokens": toks[:, :-1],
-                                      "targets": toks[:, 1:]})
-    except NotImplementedError as e:
-        require("wkv" in str(e), f"rwkv6-3b raised another error: {e}")
-        log(f"{cfg.name} train step on the card raises: {e}")
-        return
-    raise AssertionError("rwkv6-3b trained on the card without a WKV "
-                         "backward")
+class StepRounds:
+    """One train step a round on a fixed batch, for
+    ``repro_torch.obs.profile_rounds`` (which needs ``run_round(j)``, a
+    ``history`` and the ``device``)."""
+
+    def __init__(self, step, params, batch, device):
+        self.step, self.params, self.batch = step, params, batch
+        self.device, self.history = device, []
+
+    def run_round(self, j):
+        self.history.append(self.step(self.params, self.batch)[1])
+
+
+def log_profile(tag, prof, top=10):
+    """Log a ``profile_rounds`` result: the device's busy share of the wall
+    time (summed kernel and copy time over the host clock, the profiler's
+    own cost included, so a lower bound), its ops, the longest kernels,
+    the port's kernels and the phase split where there is one."""
+    log(f"{tag}: wall {prof.wall_ms:.2f} ms, device busy "
+        f"{prof.device_ms:.3f} ms ({100 * prof.busy_share:.1f}%), "
+        f"{prof.device_ops} device ops; longest: " + "; ".join(
+            f"{k[:60]} {ms:.3f} ms x{n}"
+            for k, (ms, n) in list(prof.kernels.items())[:top]))
+    log(f"{tag}: the port's kernels: " + ("; ".join(
+        f"{k[:60]} {ms:.3f} ms x{n} ({ms / n:.4f} ms a launch)"
+        for k, (ms, n) in prof.kernels.items()
+        if any(s in k for s in PORT_KERNEL_SYMBOLS)) or "none"))
+    if prof.phases:
+        log(f"{tag}: by phase (host ms, device ms, ops, busy): " + "; ".join(
+            f"{k} {v['wall_ms']:.2f} / {v['device_ms']:.3f} / "
+            f"{v['device_ops']} / {100 * (v['busy_share'] or 0):.1f}%"
+            for k, v in prof.phases.items()))
 
 
 def phase_lm_train(torch, dev, prof_ok):
-    """FedCGD over LM silos on recurrentgemma-2b at full width and depth
-    through ``launch.federated_lm_silos.run``: 3 rounds of one
-    schedule-weighted train step each, every round's loss and grad norm
-    finite, K4 / K6 and their backward kernels launched
-    ``TRAIN_STEP_LAUNCHES`` times a round and nothing else; a second run
-    on the same seed bitwise equal (metrics, masks, params); then one
-    plain ``make_train_step`` step, and one under the profiler; first the
-    card / CPU check of the reduced step and rwkv6-3b's refusal.  Returns
-    the run's launches and kernel shapes."""
+    """FedCGD over LM silos on each of ``TRAIN_ARCHS`` (``train_arch``).
+    Returns the runs' launches and kernel shapes, merged."""
+    launches, shapes = {}, {}
+    for arch in TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        got, shp = train_arch(torch, dev, prof_ok, arch)
+        launches.update(got)
+        shapes.update(shp)
+        log(f"[LM training, {arch}] done in {time.perf_counter() - t0:.2f} s")
+    return launches, shapes
+
+
+def train_arch(torch, dev, prof_ok, arch):
+    """``arch`` at full width and depth through
+    ``launch.federated_lm_silos.run``: 3 rounds of one schedule-weighted
+    train step each, every round's loss and grad norm finite, its kernels
+    and their backward kernels launched ``TRAIN_STEP_LAUNCHES`` times a
+    round and nothing else; a second run on the same seed bitwise equal
+    (metrics, masks, params); then one plain ``make_train_step`` step,
+    and one profiled (``obs.profile_rounds``); first the card / CPU check
+    of the reduced step.  Returns the run's launches and kernel shapes."""
     from repro_torch.configs import get_config
     from repro_torch.fl.distributed import make_train_step
     from repro_torch.kernels import common
     from repro_torch.launch import federated_lm_silos
     from repro_torch.models import transformer as T
-    train_card_vs_cpu(torch, dev)
-    rwkv_refuses(torch, dev)
-    cfg = get_config(TRAIN_ARCH)
-    require(cfg.remat and cfg.param_dtype == "bfloat16"
-            and TRAIN_SEQ * cfg.vocab_size > 1 << 24,
-            f"{cfg.name}: not the bf16 remat config with the chunked CE")
+    from repro_torch.obs import profile_rounds
+    train_card_vs_cpu(torch, dev, arch)
+    cfg = get_config(arch)
+    require(cfg.remat and cfg.param_dtype == "bfloat16",
+            f"{cfg.name}: not the bf16 remat config")
+    log(f"{cfg.name}: S x vocab = {TRAIN_SEQ * cfg.vocab_size}, "
+        + ("over 2**24: the chunked CE" if TRAIN_SEQ * cfg.vocab_size
+           > 1 << 24 else "not over 2**24: the whole f32 logits"))
     torch.cuda.reset_peak_memory_stats()
 
     def run():
@@ -1727,7 +1860,7 @@ def phase_lm_train(torch, dev, prof_ok):
         return params, hist, launches, dict(common.LAST_SHAPES), ms
 
     params, hist, launches, shapes, ms = run()
-    want = {k: v * TRAIN_ROUNDS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    want = {k: v * TRAIN_ROUNDS for k, v in TRAIN_STEP_LAUNCHES[arch].items()}
     n_params = sum(x.numel() for _, x in _paths(params))
     log(f"{cfg.name} FedCGD over {TRAIN_SILOS} silos x {TRAIN_PER_SILO} x "
         f"{TRAIN_SEQ} tokens, {n_params / 1e9:.3f} B params (bf16, remat): "
@@ -1749,7 +1882,8 @@ def phase_lm_train(torch, dev, prof_ok):
                 for h, g in zip(hist, thist) for k in h["metrics"])
     log(f"{cfg.name} second run on the same seed: rounds "
         + ", ".join(f"{m:.2f} ms" for m in tms)
-        + f"; bitwise equal: {same}")
+        + f"; bitwise equal: {same}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(same, f"{cfg.name}: two runs on one seed differ")
     del twin
     ds, _, _ = federated_lm_silos.silo_world(cfg, TRAIN_SILOS, TRAIN_SEQ, 8)
@@ -1768,8 +1902,10 @@ def phase_lm_train(torch, dev, prof_ok):
         met["grad_norm"])), f"{cfg.name}: the plain step is not finite")
     del new
     if prof_ok:
-        profiled(torch, f"{cfg.name} profiled train step",
-                 lambda: step(params, batch), top=10)
+        prof = profile_rounds(StepRounds(step, params, batch, dev), 1,
+                              TRACE_DIR / cfg.name,
+                              warmup=0)
+        log_profile(f"{cfg.name} profiled train step", prof)
     return launches, shapes
 
 
@@ -1841,6 +1977,21 @@ def timing_case(torch, dev, name, shp):
                 lambda: torch.autograd.grad(out, leaves, do,
                                             retain_graph=True),
                 [BF16_ATTN_TOL] * 3, 2)
+    if name == "wkv_bwd":
+        # from the forward's chunk states, as the train step calls it; held
+        # to the plain version within WKV_BWD_ERR_MULT f32 roundings of each
+        # gradient's largest entry (phase 2 holds it to f64)
+        from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+        (B, T, H, hd), = shp
+        r, k, v, w, u, s0, dy, ds = wkv_bwd_inputs(torch, B, T, H, hd, 99,
+                                                   dev)
+        chunks = wkv_cuda(r, k, v, w, u, s0, save_chunks=True)[2]
+        want = ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, ds)
+        tols = [(WKV_BWD_ERR_MULT * 2.0 ** -23 * float(x.abs().max()), 0.0)
+                for x in want]
+        return (lambda: wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds),
+                lambda: ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, ds), None,
+                tols, 4)
     if name == "rglru_bwd":
         from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
         (B, T, D), = shp
@@ -2112,7 +2263,7 @@ def main() -> int:
              for name in TPU_KERNELS if not name.endswith("_bwd")]
     # the training phase: the backward kernels at the train step's shapes
     cases += [(name, name, tr_shapes[name], tr_launches[name])
-              for name in ("attention_bwd", "rglru_bwd")]
+              for name in ("attention_bwd", "rglru_bwd", "wkv_bwd")]
     cases += [(f"{name}@C{MC_CELLS}", name, mc_shapes[name],
                mc_launches[name]) for name in FL_KERNELS]
     # the ResNet phase: K1/K2 over 100 classes, K3 at d = 512 (one cell,

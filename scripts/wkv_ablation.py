@@ -100,12 +100,12 @@ def main() -> int:
         ms = {}
         for name, lib in libs.items():
             fn = lib.wkv_launch
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
                 + [ctypes.c_void_p]
 
             def call(fn=fn):
                 err = fn(*(a.data_ptr() for a in x), y.data_ptr(),
-                         s_out.data_ptr(), B, T, H, hd, dev.index or 0,
+                         s_out.data_ptr(), None, B, T, H, hd, dev.index or 0,
                          stream)
                 if err:
                     raise RuntimeError(f"{name}: cudaError {err}")

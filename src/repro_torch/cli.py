@@ -11,8 +11,10 @@ replaced by a synthetic class-structured image set, everything else
 pipeline.  ``--device`` picks where it runs (default: the GPU; pass
 ``--device cpu`` to run on the CPU).  ``--cells N`` (N > 1) drives the
 multi-cell engine (``MultiCellTrainer``, FedCGD schedulers only) and
-reports cell 0.  The fault knobs (``--outage-prob`` ...) arm the
-wireless fault model and the server defenses.
+reports cell 0.  ``--lossy`` arms the reference example's wireless fault
+mix and server defenses, and the single knobs (``--outage-prob`` ...)
+set or override its parts; ``--metrics-out PATH.jsonl`` turns on
+``repro_torch.obs`` and streams one record a round to that file.
 """
 import argparse
 import dataclasses
@@ -26,6 +28,13 @@ from repro_torch.data import (apply_imbalance, dirichlet_partition,
 from repro_torch.faults import FaultConfig
 from repro_torch.fl import FederatedTrainer, FLConfig, MultiCellTrainer
 from repro_torch.models.registry import build_model
+from repro_torch.obs import ObsConfig, format_summary
+
+# the fault mix ``--lossy`` arms (``examples/wireless_fl.py``'s)
+LOSSY = FaultConfig(outage_prob=0.2, dropout_prob=0.1,
+                    deadline_miss_prob=0.05, corrupt_prob=0.1,
+                    reshadow_std_db=4.0, outage_slack=0.2,
+                    clip_delta_norm=25.0, backfill=True)
 
 
 def main(argv=None):
@@ -53,11 +62,16 @@ def main(argv=None):
                          "solve_many engine, with its kernels on CUDA)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU)")
+    ap.add_argument("--lossy", action="store_true",
+                    help="enable the wireless fault model + defenses")
     ap.add_argument("--outage-prob", type=float, default=None)
     ap.add_argument("--dropout-prob", type=float, default=None)
     ap.add_argument("--corrupt-prob", type=float, default=None)
     ap.add_argument("--reshadow-std-db", type=float, default=None)
     ap.add_argument("--clip-delta-norm", type=float, default=None)
+    ap.add_argument("--metrics-out", default=None, metavar="PATH.jsonl",
+                    help="enable repro_torch.obs and stream per-round "
+                         "metric records to this JSONL file")
     args = ap.parse_args(argv)
 
     ds = synthetic_image_dataset(num_classes=args.classes, num_per_class=120,
@@ -82,23 +96,27 @@ def main(argv=None):
                  ("outage_prob", "dropout_prob", "corrupt_prob",
                   "reshadow_std_db", "clip_delta_norm")
                  if getattr(args, k) is not None}
-    faults = FaultConfig(**overrides)
+    faults = dataclasses.replace(LOSSY if args.lossy else FaultConfig(),
+                                 **overrides)
+    obs = ObsConfig(enabled=args.metrics_out is not None,
+                    jsonl_path=args.metrics_out)
     fl = FLConfig(num_devices=args.devices,
                   available_prob=args.available_prob, batch_size=16,
                   tau=args.tau, scheduler=args.scheduler,
                   scheduler_backend=args.backend, device=args.device,
                   eval_every=5, seed=args.seed, num_cells=args.cells,
-                  faults=faults)
+                  faults=faults, obs=obs)
     if args.cells > 1:
         mc = MultiCellTrainer(model, train, test, parts, fl)
         mc.run(args.rounds, verbose=True)
+        engine = mc
         trainer = mc.cells[0]           # report cell 0 below
         hist = trainer.history
         print(f"\n(multi-cell: {args.cells} cells, "
               f"{mc.solve_many_calls} scheduling calls over "
               f"{args.rounds} rounds; reporting cell 0)")
     else:
-        trainer = FederatedTrainer(model, train, test, parts, fl)
+        trainer = engine = FederatedTrainer(model, train, test, parts, fl)
         hist = trainer.run(args.rounds, verbose=True)
 
     accs = [h["test_accuracy"] for h in hist if "test_accuracy" in h]
@@ -121,6 +139,11 @@ def main(argv=None):
             f"{c}={n}" for c, n in sorted(causes.items())))
         print(f"backfilled        : {sum(h['num_backfilled'] for h in hist)}")
         print(f"sanitized deltas  : {sum(h['num_sanitized'] for h in hist)}")
+    if engine.obs.enabled:
+        engine.obs.close()
+        print("\n== observability summary ==")
+        print(format_summary(engine.obs.metrics))
+        print(f"metrics written to {args.metrics_out}")
 
 
 if __name__ == "__main__":

@@ -154,7 +154,8 @@ __global__ void __launch_bounds__(Tile<HD>::kThreads)
 wkv_chunked(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
             const float* __restrict__ u, const float* __restrict__ s0,
-            float* __restrict__ y, float* __restrict__ s_out, int T, int H) {
+            float* __restrict__ y, float* __restrict__ s_out,
+            float* __restrict__ s_chunks, int T, int H) {
   using C = Tile<HD>;
   constexpr int kThreads = C::kThreads, G = C::G, RPT = C::RPT,
                 SPAN = C::SPAN, SPLIT = C::SPLIT, RS = C::RS;
@@ -247,6 +248,12 @@ wkv_chunked(const float* __restrict__ r, const float* __restrict__ k,
       cp_wait<0>();
     }
     __syncthreads();                 // chunk n staged; chunk n - 1 consumed
+    if (s_chunks) {                  // the state entering chunk n, for K5-bwd
+      float* sc = s_chunks + (((size_t)b * nch + n) * H + h) * HD * HD +
+                  (size_t)g * RPT * HD + j;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) sc[(size_t)i * HD] = S[i];
+    }
     float* const rs = smem + (n & 1) * C::kStage;
     float* const ks = rs + kL * RS;
     float* const lcs = ks + kL * RS;         // w, then lc
@@ -409,8 +416,9 @@ wkv_chunked(const float* __restrict__ r, const float* __restrict__ k,
 
 template <int HD>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, const float* s0, float* y, float* s_out, int B,
-           int T, int H, int device, cudaStream_t stream) {
+           const float* u, const float* s0, float* y, float* s_out,
+           float* s_chunks, int B, int T, int H, int device,
+           cudaStream_t stream) {
   using C = Tile<HD>;
   constexpr int smem = C::kFloats * (int)sizeof(float);
   static unsigned opted_in = 0;   // devices whose attribute is set (bit)
@@ -423,7 +431,7 @@ int launch(const float* r, const float* k, const float* v, const float* w,
     opted_in |= bit;
   }
   wkv_chunked<HD><<<B * H, C::kThreads, smem, stream>>>(
-      r, k, v, w, u, s0, y, s_out, T, H);
+      r, k, v, w, u, s0, y, s_out, s_chunks, T, H);
   return (int)cudaGetLastError();
 }
 
@@ -444,21 +452,24 @@ int on_device(int device, F fn) {
 
 }  // namespace
 
+// s_chunks, when not null, receives the state entering each chunk of 16
+// steps, [B, ceil(T / 16), H, hd, hd] (the chunk states K5-bwd,
+// csrc/wkv_bwd.cu, starts from).
 extern "C" int wkv_launch(const void* r, const void* k, const void* v,
                           const void* w, const void* u, const void* s0,
-                          void* y, void* s_out, int B, int T, int H, int hd,
-                          int device, void* stream) {
+                          void* y, void* s_out, void* s_chunks, int B, int T,
+                          int H, int hd, int device, void* stream) {
   if (B == 0 || H == 0) return 0;
   const float *rp = (const float*)r, *kp = (const float*)k,
               *vp = (const float*)v, *wp = (const float*)w,
               *up = (const float*)u, *sp = (const float*)s0;
-  float *yp = (float*)y, *op = (float*)s_out;
+  float *yp = (float*)y, *op = (float*)s_out, *cp = (float*)s_chunks;
   const cudaStream_t st = (cudaStream_t)stream;
 #define WKV_CASE(HD)                                                      \
   if (hd == HD)                                                           \
     return on_device(device, [&] {                                        \
-      return launch<HD>(rp, kp, vp, wp, up, sp, yp, op, B, T, H, device,   \
-                        st);                                              \
+      return launch<HD>(rp, kp, vp, wp, up, sp, yp, op, cp, B, T, H,       \
+                        device, st);                                      \
     });
   WKV_CASE(16) WKV_CASE(32) WKV_CASE(64) WKV_CASE(128)
 #undef WKV_CASE

@@ -13,11 +13,11 @@ no cast kernel is launched in front of them; the Eq. 10 kernel reads
 int64 labels (the round's) as they come.
 
 Gradients.  On the CPU the plain versions run under autograd.  On the
-card, ``attention`` and ``rglru`` go through ``torch.autograd.Function``s
-whose backward is a hand-written kernel (``AttentionFn``, ``RGLRUFn``);
-``wkv`` and the FL kernels have no backward kernel yet, so they raise
-when a gradient is asked of them rather than return outputs that
-autograd would treat as constants.
+card, ``attention``, ``rglru`` and ``wkv`` go through
+``torch.autograd.Function``s whose backward is a hand-written kernel
+(``AttentionFn``, ``RGLRUFn``, ``WKVFn``); the FL kernels have no
+backward kernel, so they raise when a gradient is asked of them rather
+than return outputs that autograd would treat as constants.
 """
 from __future__ import annotations
 
@@ -41,10 +41,9 @@ def _refuse_grad(name: str, *xs) -> None:
     if torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad for x in xs):
         raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet, and its "
-            f"kernel's outputs carry no gradient (ROADMAP.md, Queue 1: "
-            f"K5-bwd and the FL kernels); call it under torch.no_grad() "
-            f"or on CPU tensors")
+            f"{name} has no backward kernel on the card, and its "
+            f"kernel's outputs carry no gradient; call it under "
+            f"torch.no_grad() or on CPU tensors")
 
 
 class AttentionFn(torch.autograd.Function):
@@ -93,6 +92,29 @@ class RGLRUFn(torch.autograd.Function):
         return rglru_bwd_cuda(a, h, h0, dh, dh_last)
 
 
+class WKVFn(torch.autograd.Function):
+    """The WKV scan with its backward kernel: the forward saves the state
+    entering each chunk of 16 steps, from which the backward recomputes
+    each chunk's steps."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        from repro_torch.kernels.rwkv_scan import wkv_cuda
+        y, s, chunks = wkv_cuda(r, k, v, w, u, state, save_chunks=True)
+        ctx.save_for_backward(r, k, v, w, u, chunks)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda
+        r, k, v, w, u, chunks = ctx.saved_tensors
+        dy = torch.zeros_like(r) if dy is None else dy.contiguous()
+        B, _, H, hd = r.shape
+        ds = (r.new_zeros((B, H, hd, hd)) if ds is None
+              else ds.contiguous())
+        return wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds)
+
+
 def _f32(*xs):
     """xs as contiguous f32: each x itself (no kernel, the least host
     work) where it already is one."""
@@ -139,14 +161,16 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
 
 def wkv(r, k, v, w, u, state):
     """RWKV6 WKV over r, k, v, w [B,T,H,hd] from state [B,H,hd,hd] ->
-    (y [B,T,H,hd] in r's dtype, final state f32).  On the card it takes
-    no gradient (raises when asked for one)."""
-    if _route(r) == "cuda":
-        _refuse_grad("wkv", r, k, v, w, u, state)
+    (y [B,T,H,hd] in r's dtype, final state f32); differentiable on both
+    routes.  On the card the chunk states are saved only when a gradient
+    is being recorded."""
     args = _f32(r, k, v, w, u, state)
     if _route(r) == "cuda":
-        from repro_torch.kernels.rwkv_scan import wkv_cuda
-        y, s = wkv_cuda(*args)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+            y, s = WKVFn.apply(*args)
+        else:
+            from repro_torch.kernels.rwkv_scan import wkv_cuda
+            y, s = wkv_cuda(*args)
     else:
         y, s = ref.wkv_ref(*args)
     return y.to(r.dtype), s

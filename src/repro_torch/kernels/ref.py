@@ -76,6 +76,53 @@ def wkv_ref(r, k, v, w, u, state=None):
     return y.to(r.dtype), S
 
 
+def wkv_bwd_ref(r, k, v, w, u, state, dy, dstate=None):
+    """Gradients of the WKV kernel's function (``wkv_ref`` with w clipped
+    to [1e-8, 1], as the kernels clip it) for the outputs' gradients dy
+    [B,T,H,hd] and dstate [B,H,hd,hd] (zeros when None) -> (dr, dk, dv,
+    dw, du, dstate0): the reverse recurrence, step by step, from every
+    forward state kept.  With G_T = dstate and G_{t-1} = diag(w_t) G_t
+    + r_t dy_t^T:
+
+      dr_t = S_{t-1} dy_t + (u * k_t)(v_t . dy_t)
+      dk_t = G_t v_t + (r_t * u)(v_t . dy_t)
+      dv_t = G_t^T k_t + (r_t . (u * k_t)) dy_t
+      dw_t = rowsum(G_t * S_{t-1}), times jnp.clip's gradient: 1 inside
+             (1e-8, 1), 1/2 on a bound, 0 outside
+      du   = sum over b, t of r_t * k_t (v_t . dy_t);  dstate0 = G_0.
+
+    In f64 on f64 inputs, else in f32."""
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
+    B, T, H, hd = r.shape
+    rf, kf, vf, wf, dyf = (a.to(dt) for a in (r, k, v, w, dy))
+    uf = u.to(dt)
+    lo, hi = torch.tensor(1e-8, dtype=torch.float32).item(), 1.0
+    wc = wf.clamp(lo, hi)
+    clip_grad = torch.where((wf > lo) & (wf < hi), 1.0,
+                            torch.where((wf == lo) | (wf == hi), 0.5, 0.0))
+    S = state.to(dt)
+    states = []                                  # S_{t-1} for every t
+    for t in range(T):
+        states.append(S)
+        S = wc[:, t, ..., None] * S + torch.einsum("bhd,bhv->bhdv",
+                                                   kf[:, t], vf[:, t])
+    G = (torch.zeros_like(S) if dstate is None else dstate.to(dt))
+    dr, dk, dv, dw = (torch.zeros_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for t in range(T - 1, -1, -1):
+        rt, kt, vt, dyt, Sp = rf[:, t], kf[:, t], vf[:, t], dyf[:, t], \
+            states[t]
+        vdy = (vt * dyt).sum(-1, keepdim=True)           # [B,H,1]
+        dr[:, t] = torch.einsum("bhdv,bhv->bhd", Sp, dyt) + uf * kt * vdy
+        dk[:, t] = torch.einsum("bhdv,bhv->bhd", G, vt) + rt * uf * vdy
+        dv[:, t] = torch.einsum("bhdv,bhd->bhv", G, kt) \
+            + (rt * uf * kt).sum(-1, keepdim=True) * dyt
+        dw[:, t] = (G * Sp).sum(-1) * clip_grad[:, t]
+        du += (rt * kt * vdy).sum(0)
+        G = wc[:, t, ..., None] * G + torch.einsum("bhd,bhv->bhdv", rt, dyt)
+    return dr, dk, dv, dw, du, G
+
+
 def rglru_ref(a, b, h0):
     """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t, step by step.
     a, b [B,T,D] f32; h0 [B,D]. Returns (h [B,T,D], h_T)."""

@@ -1,13 +1,21 @@
-"""RWKV6 WKV recurrence kernel (CUDA C++, sm_90a).
+"""RWKV6 WKV recurrence kernel and its backward (CUDA C++, sm_90a).
 
 Replaces ``repro/kernels/rwkv_scan.py:wkv_pallas``.  The kernel is
 ``csrc/wkv.cu``, a chunked scan (its header says how it is laid out and
-what bounds it); it is built with ``nvcc`` on first use and called
-through ``ctypes``.  Unlike the Pallas kernel it takes an initial state,
-as the model's ``wkv_chunked`` does.
+what bounds it); the backward is ``csrc/wkv_bwd.cu`` (K5-bwd: the JAX
+package differentiates its plain scan instead).  Both are built with
+``nvcc`` on first use and called through ``ctypes``.  Unlike the Pallas
+kernel the forward takes an initial state, as the model's
+``wkv_chunked`` does.
 
   * ``wkv_cuda`` r, k, v, w [B, T, H, hd] f32, u [H, hd] f32, state
-    [B, H, hd, hd] f32 -> (y [B, T, H, hd] f32, final state f32).
+    [B, H, hd, hd] f32 -> (y [B, T, H, hd] f32, final state f32); with
+    ``save_chunks`` also the state entering each chunk of 16 steps,
+    [B, ceil(T / 16), H, hd, hd] f32, for the backward.
+  * ``wkv_bwd_cuda`` r, k, v, w, u, those chunk states, dy [B, T, H, hd]
+    and the final state's gradient [B, H, hd, hd] -> (dr, dk, dv, dw, du,
+    d state), f32: two launches (the scan, then du's sum over the batch
+    in a fixed order), counted once as ``wkv_bwd``.
 
 The launch path is short: one validation pass, the outputs'
 ``new_empty``, the current stream's raw handle, one ``ctypes`` call whose
@@ -26,12 +34,22 @@ import torch
 from repro_torch.kernels.common import count_launch, load_library
 
 HEAD_SIZES = (16, 32, 64, 128)
+CHUNK = 16                      # steps between the saved chunk states
 
 
 @functools.cache
 def _launcher():
     fn = load_library("wkv.cu").wkv_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_launcher():
+    fn = load_library("wkv_bwd.cu").wkv_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -63,17 +81,47 @@ def _check(r, k, v, w, u, state):
     return B, T, H, hd, device
 
 
-def wkv_cuda(r, k, v, w, u, state):
+def wkv_cuda(r, k, v, w, u, state, save_chunks=False):
     B, T, H, hd, device = _check(r, k, v, w, u, state)
     y = r.new_empty(r.shape)
     s_out = state.new_empty(state.shape)
+    chunks = (r.new_empty((B, -(-T // CHUNK), H, hd, hd)) if save_chunks
+              else None)
+    if B * H > 0:
+        err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          w.data_ptr(), u.data_ptr(), state.data_ptr(),
+                          y.data_ptr(), s_out.data_ptr(),
+                          chunks.data_ptr() if save_chunks else None, B, T,
+                          H, hd, device,
+                          torch._C._cuda_getCurrentRawStream(device))
+        if err != 0:
+            raise RuntimeError(f"wkv launch failed: cudaError {err}")
+        count_launch("wkv", r.shape)
+    return (y, s_out, chunks) if save_chunks else (y, s_out)
+
+
+def wkv_bwd_cuda(r, k, v, w, u, chunks, dy, dstate):
+    """Gradients of ``wkv_cuda``'s (y, final state) for dy and dstate,
+    from the forward's chunk states -> (dr, dk, dv, dw, du, dstate0)."""
+    B, T, H, hd, device = _check(r, k, v, w, u, dstate)
+    for x, shape in ((chunks, (B, -(-T // CHUNK), H, hd, hd)),
+                     (dy, tuple(r.shape))):
+        if not (x.is_cuda and x.dtype == torch.float32
+                and x.is_contiguous() and tuple(x.shape) == shape
+                and x.get_device() == device):
+            raise ValueError(f"wkv_bwd_cuda takes contiguous f32 chunk "
+                             f"states {shape} and dy like r on r's device")
+    grads = [r.new_empty(r.shape) for _ in range(4)]
+    du = u.new_zeros(u.shape)
+    ds0 = dstate.new_empty(dstate.shape)
     if B * H == 0:
-        return y, s_out
-    err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                      u.data_ptr(), state.data_ptr(), y.data_ptr(),
-                      s_out.data_ptr(), B, T, H, hd, device,
-                      torch._C._cuda_getCurrentRawStream(device))
+        return (*grads, du, ds0)
+    du_part = r.new_empty((B, H, hd))
+    err = _bwd_launcher()(
+        *(x.data_ptr() for x in (r, k, v, w, u, chunks, dy, dstate, *grads,
+                                 du_part, du, ds0)),
+        B, T, H, hd, device, torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
-        raise RuntimeError(f"wkv launch failed: cudaError {err}")
-    count_launch("wkv", r.shape)
-    return y, s_out
+        raise RuntimeError(f"wkv_bwd launch failed: cudaError {err}")
+    count_launch("wkv_bwd", r.shape)
+    return (*grads, du, ds0)

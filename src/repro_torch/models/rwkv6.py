@@ -5,10 +5,16 @@ The WKV recurrence has data-dependent per-channel decay:
     S_t = diag(w_t) S_{t-1} + k_t v_t^T          (S in R^{hd x hd} per head)
     y_t = r_t S_{t-1} + (r_t . (u * k_t)) v_t
 
-Prefill runs it through ``kernels.ops.wkv`` (the hand-written kernel on a
-CUDA tensor, the step-by-step plain version on the CPU) from the layer's
-carried state; decode takes one step in plain torch, as the JAX package
-does.
+Prefill and training run it through ``kernels.ops.wkv`` (the
+hand-written kernel on a CUDA tensor, the step-by-step plain version on
+the CPU) from the layer's carried state; decode takes one step in plain
+torch, as the JAX package does.  Under autograd on the card ``ops.wkv``
+is ``WKVFn``: the forward kernel saves the state entering each chunk of
+16 steps and the backward kernel (K5-bwd) recomputes each chunk from it;
+with ``cfg.remat`` the layer runs under the same per-layer
+``torch.utils.checkpoint`` as every layer (``transformer.forward_hidden``),
+so one layer's chunk states are alive at a time.  On the CPU autograd
+runs through the plain version.
 """
 from __future__ import annotations
 

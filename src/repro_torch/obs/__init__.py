@@ -1,7 +1,7 @@
 """repro_torch.obs — round-phase tracing, metrics registry, sinks.
 
 The observability substrate for the FL engine (carried over from
-``repro.obs``; the ``jax.profiler`` capture has no counterpart here yet):
+``repro.obs``):
 
   * ``Obs`` / ``from_config`` — the facade trainers hold (span tracer +
     metrics registry + sink fan-out); ``DISABLED`` is the shared no-op
@@ -10,6 +10,8 @@ The observability substrate for the FL engine (carried over from
     metrics with fixed-bucket percentiles; never a device sync.
   * ``MemorySink`` / ``JSONLSink`` / ``ConsoleSink`` — per-round record
     sinks; ``read_jsonl`` / ``format_summary`` for consumers.
+  * ``profile_rounds`` — a ``torch.profiler`` trace of N rounds, with the
+    device's busy share and op count, split by phase.
 
 Span names emitted by the trainer: ``round`` (whole round), and its
 phases ``prep`` / ``core`` / ``schedule`` / ``upload`` / ``finalize``,
@@ -21,6 +23,7 @@ from repro_torch.obs.core import (DEFAULT, DISABLED, Obs,  # noqa: F401
 from repro_torch.obs.metrics import (COUNT_BUCKETS,  # noqa: F401
                                      TIME_BUCKETS, Counter, Gauge,
                                      Histogram, Registry)
+from repro_torch.obs.profile import Profile, profile_rounds  # noqa: F401
 from repro_torch.obs.sinks import (ConsoleSink, JSONLSink,  # noqa: F401
                                    MemorySink, dumps_record, format_summary,
                                    read_jsonl)

@@ -408,6 +408,135 @@ def test_wkv_kernel_refuses_bad_inputs_on_card(cuda):
         wkv_cuda(r.double(), k, v, w, u, s)
 
 
+# K5-bwd.  Truth: the plain backward in f64; the kernel's max abs error on
+# each gradient may be at most WKV_BWD_ERR_MULT times the f32 plain
+# version's (or 2^-24 of the gradient's largest entry, where that is
+# larger).  The first card run read ratios of 0.55-8.4 (8.4: dw at hd
+# 128; at the train shape 0.75-3.0): the kernel's decays go through
+# ex2/lg2.approx and its sums run in other orders.
+WKV_BWD_ERR_MULT = 16
+# B, T, H, hd: every head size, T off the chunk of 16 (T = 1, 17, 37, 250)
+WKV_BWD_CARD_SHAPES = [(2, 48, 3, 32), (1, 37, 1, 64), (1, 20, 2, 128),
+                       (2, 17, 3, 16), (2, 1, 2, 64), (4, 250, 8, 64),
+                       (2, 100, 4, 128)]
+
+
+def wkv_bwd_case(rng, B, T, H, hd, device):
+    args = wkv_inputs(rng, B, T, H, hd, device)
+    dy, ds = to_torch([randn(rng, (B, T, H, hd)),
+                       randn(rng, (B, H, hd, hd))], device)
+    return args, dy, ds
+
+
+def assert_wkv_bwd_close(got, args, dy, ds):
+    """``got`` (dr, dk, dv, dw, du, dstate) against the f64 plain backward,
+    at ``WKV_BWD_ERR_MULT`` times the f32 plain version's error."""
+    plain = tref.wkv_bwd_ref(*args, dy, ds)
+    truth = tref.wkv_bwd_ref(*(x.double() for x in (*args, dy, ds)))
+    for name, g, p, t in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                             plain, truth):
+        assert g.dtype == torch.float32 and g.shape == t.shape, name
+        err = float((g.double() - t).abs().max())
+        floor = max(float((p.double() - t).abs().max()),
+                    2.0 ** -24 * float(t.abs().max()))
+        assert err <= WKV_BWD_ERR_MULT * floor, (name, err, floor)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,T,H,hd", WKV_BWD_CARD_SHAPES)
+def test_wkv_bwd_kernel_on_card(cuda, B, T, H, hd):
+    """K5-bwd from the forward's chunk states against the f64 plain
+    backward; the chunk states are the states the forward reaches; two
+    calls give the same bits."""
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(T + hd + 40), B, T, H,
+                                hd, cuda)
+    y, s, chunks = wkv_cuda(*args, save_chunks=True)
+    y2, s2 = wkv_cuda(*args)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert chunks.shape == (B, -(-T // 16), H, hd, hd)
+    torch.testing.assert_close(chunks[:, 0], args[5], atol=0, rtol=0)
+    if T > 16:
+        head = [x[:, :16].contiguous() for x in args[:4]]
+        torch.testing.assert_close(chunks[:, 1], wkv_cuda(
+            *head, *args[4:])[1], atol=0, rtol=0)
+    got = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    again = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert_wkv_bwd_close(got, args, dy, ds)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("wval", [1e-8, 1e-4])
+def test_wkv_bwd_kernel_extreme_decay_on_card(cuda, wval):
+    """w = 1e-8 (and 1e-4) over 48 steps at hd 64 with a run of w = 1:
+    every factor of the kernel is at most 1, so the gradients are finite
+    and held to the f64 plain backward as above."""
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(5), 1, 48, 1, 64,
+                                cuda)
+    args[3] = torch.full_like(args[3], wval)
+    args[3][:, 20:30] = 1.0
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    got = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert_wkv_bwd_close(got, args, dy, ds)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,T", [(0, 2, 16), (2, 0, 16), (2, 2, 0)])
+def test_wkv_bwd_kernel_empty_on_card(cuda, B, H, T):
+    """No batch or head: no launch; no step: dstate passes through and du
+    is 0."""
+    from repro_torch.kernels.common import LAUNCHES
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(2), B, T, H, 64, cuda)
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    before = LAUNCHES["wkv_bwd"]
+    got = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wkv_bwd"] == before + (B * H > 0)
+    if B * H:
+        assert torch.equal(got[5], ds) and not bool(got[4].any())
+
+
+@pytest.mark.requires_cuda
+def test_wkv_fn_matches_cpu_autograd_on_card(cuda):
+    """``ops.wkv`` under autograd on the card (K5 saving chunk states,
+    then K5-bwd) against autograd of the plain version on the CPU, bf16
+    r, k, v cast in front as the model's are; one launch of each."""
+    from repro_torch.kernels import common, ops
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(7), 2, 40, 2, 64,
+                                cuda)
+    common.reset_launches()
+    card = [x.to(torch.bfloat16) if i < 3 else x.clone()
+            for i, x in enumerate(args)]
+    cpu = [x.cpu() for x in card]
+    outs = []
+    for leaves, d in ((card, cuda), (cpu, torch.device("cpu"))):
+        leaves = [x.requires_grad_(True) for x in leaves]
+        y, s = ops.wkv(*leaves)
+        outs.append(torch.autograd.grad((y, s), leaves,
+                                        (dy.to(d, torch.bfloat16), ds.to(d))))
+    assert dict(common.LAUNCHES) == {"wkv": 1, "wkv_bwd": 1}
+    for g, w in zip(*outs):
+        assert g.dtype == w.dtype
+        torch.testing.assert_close(g.cpu().float(), w.float(), atol=2e-2,
+                                   rtol=2e-2)
+
+
+@pytest.mark.requires_cuda
+def test_wkv_bwd_kernel_refuses_bad_inputs_on_card(cuda):
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(3), 1, 20, 2, 64, cuda)
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    with pytest.raises(ValueError, match="chunk states"):
+        wkv_bwd_cuda(*args[:5], chunks[:, :1].contiguous(), dy, ds)
+    with pytest.raises(ValueError, match="chunk states"):
+        wkv_bwd_cuda(*args[:5], chunks, dy.double(), ds)
+
+
 def rglru_inputs(rng, B, T, D, device, a_val=None, scaled=False):
     """a in [0.8, 0.999], or ``a_val`` everywhere; unit b, or b =
     sqrt(1 - a^2) x as RG-LRU forms it; h0 ~ N(0, 1)."""
@@ -671,11 +800,11 @@ def test_rglru_bwd_kernel_repeatable_on_card(cuda, B, T, D):
 
 @pytest.mark.requires_cuda
 def test_kernel_outputs_carry_gradients_on_card(cuda):
-    """``ops.attention`` and ``ops.rglru`` on CUDA tensors give the plain
-    versions' autograd gradients (their kernels' outputs once had no
-    grad_fn, so autograd dropped what flowed through them); ``ops.wkv``
-    and the FL kernels raise under grad instead of returning outputs
-    autograd would treat as constants."""
+    """``ops.attention``, ``ops.rglru`` and ``ops.wkv`` on CUDA tensors
+    give the plain versions' gradients (their kernels' outputs once had
+    no grad_fn, so autograd dropped what flowed through them); the FL
+    kernels raise under grad instead of returning outputs autograd would
+    treat as constants."""
     from repro_torch.kernels import ops
     rng = np.random.default_rng(8)
     q, k, v, do = attn_bwd_inputs(rng, 2, 10, 1, 64, 64, 256, torch.float32,
@@ -706,8 +835,14 @@ def test_kernel_outputs_carry_gradients_on_card(cuda):
     w = torch.rand(1, 16, 2, 64, device=cuda) * 0.5 + 0.4
     u, s0 = torch.zeros(2, 64, device=cuda), torch.zeros(1, 2, 64, 64,
                                                          device=cuda)
-    with pytest.raises(NotImplementedError, match="wkv"):
-        ops.wkv(r, r.detach(), r.detach(), w, u, s0)
+    y, _ = ops.wkv(r, r.detach(), r.detach(), w, u, s0)
+    assert y.grad_fn is not None
+    dy = torch.randn_like(y)
+    got, = torch.autograd.grad(y, r, dy)
+    want = tref.wkv_bwd_ref(r.detach(), r.detach(), r.detach(), w, u, s0,
+                            dy)[0]
+    assert float(got.abs().max()) > 0
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
     with torch.no_grad():
         ops.wkv(r, r, r, w, u, s0)
     h, lg, lab = to_torch(psg_inputs(32, 120, 10, 0), cuda)

@@ -544,3 +544,201 @@ def test_lm_backward_wrappers_take_cuda_tensors_only():
     a = torch.zeros(1, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rglru_bwd_cuda(a, a, a[:, 0], a, a[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# K5-bwd: the plain version of the WKV backward against jax.vjp of the JAX
+# package's plain recurrence and of the model's chunked scan, and the
+# chunked design of csrc/wkv_bwd.cu in plain torch against the plain version
+
+# B, T, H, hd: T = 37 and 20 leave a chunk of 16 partly past T
+WKV_BWD_SHAPES = [(2, 48, 3, 32), (1, 16, 2, 64), (2, 100, 2, 16),
+                  (1, 37, 1, 64), (1, 20, 2, 128)]
+# f32 against f32 in other orders: the largest reading was 5.7e-5 on
+# gradients up to 85 (wkv_chunked's vjp, which goes through exp and log)
+WKV_BWD_TOL = dict(atol=2e-4, rtol=1e-4)
+
+
+def wkv_bwd_inputs(rng, B, T, H, hd):
+    """wkv_inputs, a non-zero initial state, and the outputs' gradients."""
+    r, k, v, w, u = wkv_inputs(rng, B, T, H, hd)
+    state = randn(rng, (B, H, hd, hd), scale=0.5)
+    return (r, k, v, w, u, state, randn(rng, (B, T, H, hd)),
+            randn(rng, (B, H, hd, hd)))
+
+
+@pytest.mark.parametrize("B,T,H,hd", WKV_BWD_SHAPES)
+def test_wkv_bwd_plain_matches_reference_vjp(B, T, H, hd):
+    """dr, dk, dv, dw, du and the initial state's gradient of
+    ``wkv_bwd_ref`` against ``jax.vjp`` of ``repro.kernels.ref.wkv_ref``
+    and of ``repro.models.rwkv6.wkv_chunked``, from a non-zero state with
+    gradients into y and into the final state, at ``WKV_BWD_TOL``."""
+    args = wkv_bwd_inputs(np.random.default_rng(T + hd + 3), B, T, H, hd)
+    got = tref.wkv_bwd_ref(*(t(a) for a in args))
+    for fn in (jref.wkv_ref, wkv_chunked):
+        _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args[:6]))
+        want = vjp((jnp.asarray(args[6]), jnp.asarray(args[7])))
+        for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                              want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       err_msg=f"{fn.__name__} {name}",
+                                       **WKV_BWD_TOL)
+
+
+def test_wkv_bwd_plain_clip_gradient():
+    """Where the clip of w to [1e-8, 1] binds, dw is jnp.clip's: 0 below
+    1e-8 (1e-9 here) and 1/2 on a bound (w = 1 exactly), against
+    ``jax.vjp`` of the model's ``wkv_chunked``, which clips.  (On the
+    lower bound, w = 1e-8 exactly, ``wkv_chunked``'s vjp multiplies its
+    gradient by 1/w = 1e8 after a log, so its f32 reading there is not a
+    reference.)"""
+    B, T, H, hd = 1, 24, 2, 16
+    args = list(wkv_bwd_inputs(np.random.default_rng(11), B, T, H, hd))
+    w = args[3]
+    w[:, 2] = 1.0
+    w[:, 5, :, :4] = 1e-9
+    got = tref.wkv_bwd_ref(*(t(a) for a in args))
+    _, vjp = jax.vjp(wkv_chunked, *(jnp.asarray(a) for a in args[:6]))
+    want = vjp((jnp.asarray(args[6]), jnp.asarray(args[7])))
+    assert np.all(got[3][:, 5, :, :4].numpy() == 0)
+    for name, g, x in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                          want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(x), err_msg=name,
+                                   **WKV_BWD_TOL)
+
+
+def chunked_wkv_bwd(r, k, v, w, u, state, dy, dstate, chunk=16):
+    """The design of ``csrc/wkv_bwd.cu`` in plain torch, in f32: the
+    forward's chunk-entry states, then the chunks walked from the last,
+    carrying G; per chunk a[t] = 2^(lct - lc[t]), b[t] = 2^lc[t-1] and
+    e[t][s] = 2^(lc[t-1] - lc[s]) for s < t (each exponent <= 0), B[t][s]
+    = dy_t . v_s, SD[t] = S0 dy_t, GV[t] = G v_t, X = rowsum(G * S0), and
+    the kernel's formulas for dr, dk, dv, dw (with jnp.clip's gradient),
+    du and G.  Past T the rows are zero and the decay 1."""
+    B, T, H, hd = r.shape
+    L, pad = chunk, (-T) % chunk
+
+    def blocks(a, value=0.0):       # [B, T, H, hd] -> [B, H, T + pad, hd]
+        return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad),
+                                       value=value).transpose(1, 2)
+    rb, kb, vb, dyb, wb = (blocks(r), blocks(k), blocks(v), blocks(dy),
+                           blocks(w, 1.0))
+    lw = torch.log2(wb.clamp(1e-8, 1.0))
+    lo = torch.tensor(1e-8).item()
+    clip_grad = torch.where((wb > lo) & (wb < 1), 1.0, torch.where(
+        (wb == lo) | (wb == 1), 0.5, 0.0))
+    below = torch.tril(torch.ones(L, L, dtype=torch.bool), -1)
+    uu = u[None, :, None]
+    S, starts = state.clone(), []
+    for c0 in range(0, T + pad, L):
+        starts.append(S)
+        lc = torch.cumsum(lw[:, :, c0:c0 + L], 2)
+        lct = lc[:, :, -1:]
+        S = torch.exp2(lct).transpose(-1, -2) * S + (
+            kb[:, :, c0:c0 + L] * torch.exp2(lct - lc)).transpose(-1, -2) \
+            @ vb[:, :, c0:c0 + L]
+    G = dstate.clone()
+    grads = [torch.zeros_like(rb) for _ in range(4)]
+    du = torch.zeros_like(u)
+    for c0 in range(T + pad - L, -1, -L):
+        S0 = starts[c0 // L]
+        rc, kc, vc, dyc = (x[:, :, c0:c0 + L] for x in (rb, kb, vb, dyb))
+        lc = torch.cumsum(lw[:, :, c0:c0 + L], 2)
+        lp = torch.cat([torch.zeros_like(lc[:, :, :1]), lc[:, :, :-1]], 2)
+        lct = lc[:, :, -1:]
+        a, b = torch.exp2(lct - lc), torch.exp2(lp)
+        e = torch.exp2(torch.where(below[..., None], lp[:, :, :, None]
+                                   - lc[:, :, None, :], -torch.inf))
+        Bm = dyc @ vc.transpose(-1, -2)
+        Bd = torch.diagonal(Bm, dim1=-2, dim2=-1)[..., None]
+        A = (rc[:, :, :, None] * kc[:, :, None] * e).sum(-1) \
+            + torch.diag_embed((rc * uu * kc).sum(-1))
+        SD, GV = dyc @ S0.transpose(-1, -2), vc @ G.transpose(-1, -2)
+        X = (G * S0).sum(-1)[:, :, None]
+        ek = e * kc[:, :, None]                  # [t, q, d] e[t][q] k_q
+        er = e * rc[:, :, :, None]               # [s, t, d] e[s][t] r_s
+        z = b[:, :, None] * SD[:, :, :, None] \
+            + torch.einsum("bhtqd,bhsq->bhstd", ek, Bm)
+        out = (b * SD + (Bm[..., None] * ek).sum(3) + uu * kc * Bd,
+               a * GV + (Bm[..., None] * er).sum(2) + rc * uu * Bd,
+               (kc * a) @ G + A.transpose(-1, -2) @ dyc,
+               (a * (b * X + (ek * GV[:, :, None]).sum(3))
+                + (er * z).sum(2)) * clip_grad[:, :, c0:c0 + L])
+        for g, o in zip(grads, out):
+            g[:, :, c0:c0 + L] = o
+        du += (rc * kc * Bd).sum((0, 2))
+        G = torch.exp2(lct).transpose(-1, -2) * G \
+            + (rc * b).transpose(-1, -2) @ dyc
+    return (*(g.transpose(1, 2)[:, :T] for g in grads), du, G)
+
+
+@pytest.mark.parametrize("B,T,H,hd", WKV_BWD_SHAPES + [(2, 1, 2, 32),
+                                                       (1, 0, 1, 16)])
+def test_chunked_wkv_bwd_design_matches_plain(B, T, H, hd):
+    """The kernel's chunked backward against the step-by-step plain
+    version at ``WKV_BWD_TOL``; T = 1 leaves 15 steps of the chunk past T,
+    T = 0 has no chunk (dstate passes through, du is 0)."""
+    args = [t(a) for a in wkv_bwd_inputs(np.random.default_rng(T + hd + 5),
+                                         B, T, H, hd)]
+    got = chunked_wkv_bwd(*args)
+    want = tref.wkv_bwd_ref(*args)
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                          want):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
+                                   **WKV_BWD_TOL)
+
+
+def test_chunked_wkv_bwd_design_extreme_decay():
+    """w = 1e-8 over 48 steps at hd 64, and a run of w = 1: every factor
+    of the design is at most 1, so the gradients stay finite and within
+    ``WKV_BWD_TOL`` of the plain version in f64 (the state's memory lasts
+    one step, so each gradient reads only its neighbours)."""
+    rng = np.random.default_rng(9)
+    B, T, H, hd = 1, 48, 1, 64
+    args = list(wkv_bwd_inputs(rng, B, T, H, hd))
+    args[3] = np.full((B, T, H, hd), 1e-8, np.float32)
+    args[3][:, 20:30] = 1.0
+    got = chunked_wkv_bwd(*(t(a) for a in args))
+    want = tref.wkv_bwd_ref(*(t(a).double() for a in args))
+    for name, g, w in zip(("dr", "dk", "dv", "dw", "du", "dstate"), got,
+                          want):
+        assert np.isfinite(g.numpy()).all(), name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=name,
+                                   **WKV_BWD_TOL)
+
+
+def test_wkv_bwd_plain_f64_is_the_truth():
+    """On f64 inputs the plain backward runs in f64 (the truth the card's
+    kernel is held against), and its f32 run lies within
+    ``WKV_BWD_TOL`` of it."""
+    args = wkv_bwd_inputs(np.random.default_rng(12), 1, 33, 2, 32)
+    exact = tref.wkv_bwd_ref(*(t(a).double() for a in args))
+    f32 = tref.wkv_bwd_ref(*(t(a) for a in args))
+    for g, w in zip(f32, exact):
+        assert w.dtype == torch.float64 and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **WKV_BWD_TOL)
+
+
+def test_wkv_autograd_on_cpu_is_the_plain_backward():
+    """``ops.wkv`` on CPU tensors under autograd (the CPU route) gives the
+    plain backward's gradients, bf16 r, k, v included."""
+    args = [t(a).requires_grad_(True) for a in
+            wkv_bwd_inputs(np.random.default_rng(13), 2, 21, 2, 16)[:6]]
+    dy, ds = (t(a) for a in wkv_bwd_inputs(np.random.default_rng(14), 2, 21,
+                                           2, 16)[6:])
+    y, s = ops.wkv(*args)
+    got = torch.autograd.grad((y, s), args, (dy, ds))
+    want = tref.wkv_bwd_ref(*(a.detach() for a in args), dy, ds)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **WKV_BWD_TOL)
+
+
+def test_wkv_bwd_wrapper_takes_cuda_tensors_only():
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    r = torch.zeros(1, 4, 2, 16)
+    s = torch.zeros(1, 2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_bwd_cuda(r, r, r, r, r[0, 0], s[:, None], r, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_cuda(r, r, r, r, r[0, 0], s, save_chunks=True)

@@ -213,6 +213,25 @@ def test_train_step_matches_reference(arch, federated):
     assert all(torch.equal(v, before[k]) for k, v in leaves(tp))
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_rwkv_federated_step_across_chunks_matches_reference(remat):
+    """rwkv6-3b's schedule-weighted step over 37 tokens (the reference's
+    chunked WKV pads them to three chunks of 16), with and without
+    per-layer remat, against the reference's step."""
+    jcfg, tcfg = cfgs("rwkv6-3b", remat=remat)
+    jp, tp = weights("rwkv6-3b")
+    batch = lm_batch(jcfg, 4, 37, seed=12)
+    batch["schedule_weights"] = np.asarray(
+        JD.silo_weights(np.array([0, 1, 1, 1]), 4)).astype(np.float32)
+    jnew, jmet = j_step(jcfg, jp, batch, 0.1, True)
+    tnew, tmet = TD.make_train_step(tcfg, eta=0.1, federated=True)(
+        tp, as_torch(batch))
+    close_loss(tmet["loss"], jmet["loss"])
+    assert rel_l2(float(tmet["grad_norm"]), float(jmet["grad_norm"])) \
+        <= PARAM_RTOL
+    close_params(tnew, jnew, before=jp)
+
+
 def test_train_step_remat_and_bf16_params():
     """``remat=True`` (each layer under torch.utils.checkpoint) gives the
     step without it; bf16 params step in bf16 (p - eta * g in the leaf's
@@ -476,11 +495,25 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.requires_cuda
-def test_rwkv_train_step_raises_on_card(cuda):
-    """rwkv6-3b cannot train on the card until the WKV kernel has its
-    backward: the step raises, naming it."""
+def test_rwkv_train_step_on_card_matches_cpu(cuda):
+    """The reduced f32 rwkv6-3b federated step on the card (the WKV kernel
+    saving its chunk states, then its backward kernel, once a layer)
+    against the same step on the CPU (the plain version under autograd):
+    loss within 1e-5 relative, new params within 1e-4 relative in L2 per
+    leaf."""
     _, tcfg = cfgs("rwkv6-3b")
     _, tp = weights("rwkv6-3b")
-    with pytest.raises(NotImplementedError, match="wkv"):
-        TD.make_train_step(tcfg)(jax.tree.map(lambda x: x.to(cuda), tp),
-                                 as_torch(lm_batch(tcfg, 2, 8, 11), cuda))
+    batch = lm_batch(tcfg, 4, 37, seed=11)
+    batch["schedule_weights"] = np.repeat(np.asarray(
+        TD.silo_weights(np.array([1, 0, 1, 1]), 4)), 1).astype(np.float32)
+    step = TD.make_train_step(tcfg, eta=0.1, federated=True)
+    want, wmet = step(tp, as_torch(batch))
+    common.reset_launches()
+    got, gmet = step(jax.tree.map(lambda x: x.to(cuda), tp),
+                     as_torch(batch, cuda))
+    torch.cuda.synchronize()
+    assert dict(common.LAUNCHES) == {"wkv": tcfg.num_layers,
+                                     "wkv_bwd": tcfg.num_layers}
+    close_loss(gmet["loss"].cpu(), wmet["loss"])
+    for (k, a), (_, b) in zip(leaves(got), leaves(want)):
+        assert rel_l2(a.cpu().numpy(), b.numpy()) <= PARAM_RTOL, k
