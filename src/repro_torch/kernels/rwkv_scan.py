@@ -102,7 +102,9 @@ def wkv_cuda(r, k, v, w, u, state, save_chunks=False):
 
 def wkv_bwd_cuda(r, k, v, w, u, chunks, dy, dstate):
     """Gradients of ``wkv_cuda``'s (y, final state) for dy and dstate,
-    from the forward's chunk states -> (dr, dk, dv, dw, du, dstate0)."""
+    from the forward's chunk states -> (dr, dk, dv, dw, du, dstate0).
+    dy is staged by 16-byte copies and the chunk states read by 8-byte
+    loads: either off that alignment is copied first."""
     B, T, H, hd, device = _check(r, k, v, w, u, dstate)
     for x, shape in ((chunks, (B, -(-T // CHUNK), H, hd, hd)),
                      (dy, tuple(r.shape))):
@@ -111,6 +113,10 @@ def wkv_bwd_cuda(r, k, v, w, u, chunks, dy, dstate):
                 and x.get_device() == device):
             raise ValueError(f"wkv_bwd_cuda takes contiguous f32 chunk "
                              f"states {shape} and dy like r on r's device")
+    if dy.data_ptr() % 16:      # staged by 16-byte copies, as r, k, v, w
+        dy = dy.clone()
+    if chunks.data_ptr() % 8:   # read by 8-byte loads
+        chunks = chunks.clone()
     grads = [r.new_empty(r.shape) for _ in range(4)]
     du = u.new_zeros(u.shape)
     ds0 = dstate.new_empty(dstate.shape)

@@ -485,6 +485,56 @@ def test_wkv_bwd_kernel_extreme_decay_on_card(cuda, wval):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("wval", [1e-8, 1e-4])
+def test_wkv_bwd_kernel_extreme_decay_hd128_on_card(cuda, wval):
+    """``test_wkv_bwd_kernel_extreme_decay_on_card`` at hd 128, whose
+    blocks have twice the threads and other warp roles."""
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(6), 1, 48, 1, 128,
+                                cuda)
+    args[3] = torch.full_like(args[3], wval)
+    args[3][:, 20:30] = 1.0
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    got = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    assert_wkv_bwd_close(got, args, dy, ds)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("scale", [(1e3, 1e3), (1e-3, 1e-3), (1e3, 1e-3)])
+def test_wkv_bwd_kernel_scaled_inputs_on_card(cuda, hd, scale):
+    """r and v scaled by ``scale[0]``, k and dy by ``scale[1]``: the
+    tensor-core products split each operand into TF32 hi + lo, which
+    loses digits first where the operands are far from 1; held to the
+    f64 plain backward as above."""
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(hd + 8), 2, 37, 2,
+                                hd, cuda)
+    for i, c in ((0, scale[0]), (1, scale[1]), (2, scale[0])):
+        args[i] = args[i] * c
+    dy = dy * scale[1]
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    got = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    assert_wkv_bwd_close(got, args, dy, ds)
+
+
+@pytest.mark.requires_cuda
+def test_wkv_bwd_kernel_unaligned_dy_on_card(cuda):
+    """A dy off 16-byte alignment (a view one float into its storage)
+    gives the same bits as an aligned copy of it."""
+    from repro_torch.kernels.rwkv_scan import wkv_bwd_cuda, wkv_cuda
+    args, dy, ds = wkv_bwd_case(np.random.default_rng(4), 1, 20, 2, 64, cuda)
+    chunks = wkv_cuda(*args, save_chunks=True)[2]
+    off = torch.empty(dy.numel() + 1, device=cuda)[1:].view(dy.shape)
+    off.copy_(dy)
+    assert off.data_ptr() % 16
+    got = wkv_bwd_cuda(*args[:5], chunks, off, ds)
+    want = wkv_bwd_cuda(*args[:5], chunks, dy, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("B,H,T", [(0, 2, 16), (2, 0, 16), (2, 2, 0)])
 def test_wkv_bwd_kernel_empty_on_card(cuda, B, H, T):
     """No batch or head: no launch; no step: dstate passes through and du
