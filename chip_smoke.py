@@ -92,6 +92,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      reduced config (2e-3 * scale, the bound of the JAX package's
      tests/test_models_smoke.py) and in bf16 on the full ones and on
      their first layers (``BF16_CONSISTENCY``, ``LM_DEPTHS``);
+ 7b. serves the rest of the LM zoo (``phase_lm_zoo``): qwen2-7b,
+     gemma3-27b, moonshot-v1-16b-a3b and llama-3.2-vision-11b (with 1601
+     encoder embeddings) at published width and full depth, B=4 prompts
+     of 3072 tokens, 32 sampled tokens; then yi-34b (B=1), musicgen-large
+     (the prefill step alone, over frame embeddings), qwen3-moe-235b-a22b
+     cut to 11 layers and arctic-480b cut to 2 (what fits in about 60
+     GB); bf16, seeded random
+     weights with every cross layer's gate 1.0 and the QKV biases and
+     RMS-norm scales N(0, 0.02).  Each prefill must launch the attention
+     kernel once an attention layer, cross layers included
+     (``ZOO_PREFILL_LAUNCHES``), and decode none; the prefill step's
+     last-position logits must lie within ``HEAD_TOL`` x scale of the
+     full forward's head (over its last ``ZOO_HEAD_ROWS`` positions; it
+     logs whether they are bitwise the head on the forward's last row
+     alone, and that head's gap to the one over 512 rows); the
+     prefill step of P tokens plus 8 teacher-forced decode steps must
+     agree with one forward of P+8 within ``ZOO_BF16_CONSISTENCY`` (an
+     MoE model on one sequence at capacity factor min(E/k, 16), where it
+     must drop nothing, and again with every layer routed as the forward,
+     within ``ZOO_REPLAYED_CONSISTENCY``, where a step's own choice may
+     differ from the forward's only at a near-tie, ``ZOO_FLIP_GAP``);
+     logs the dropped MoE assignments at the published capacity factor,
+     1.25, and each model's peak memory; then holds the attention kernel
+     to its plain version (bf16 and f32) at every shape these prefills
+     launched it at;
   8. trains recurrentgemma-2b, then rwkv6-3b, at published width and
      depth (bf16, each layer rematerialised) through
      ``launch.federated_lm_silos.run``: FedCGD over 8 silos of 2
@@ -114,8 +139,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      yardstick;
      K1-K3 also at their 8-cell
      shapes, rows ``<name>@C8``, K1/K2 at the ResNet rounds' 100
-     classes, rows ``<name>@C100``, and K3 at the ResNet's single-cell
-     and 8-cell shapes, rows ``persample_gradnorm@R`` and ``@Rx8``)
+     classes, rows ``<name>@C100``, K3 at the ResNet's single-cell
+     and 8-cell shapes, rows ``persample_gradnorm@R`` and ``@Rx8``, and
+     attention at the zoo's prefill shapes, rows ``attention@<arch>/<kind>``
+     for qwen2-7b, gemma3-27b's local and global layers and
+     llama-3.2-vision-11b's cross layers)
      beside its plain version, one
      library call where one computes the same function (``cdist`` for
      the WEMD scans, ``scaled_dot_product_attention`` under the window
@@ -144,6 +172,7 @@ result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -1713,6 +1742,570 @@ def profile_serving(torch, model, params, prompt, arch):
              lambda: serve(params, cache, {"tokens": tok}))
 
 
+# LM zoo serving phase: the primary models at published width and full
+# depth, then the secondary ones in order, each in bf16 with seeded random
+# weights whose zero-initialised leaves are made nonzero (``zoo_leaves``).
+# Secondary: (arch, batch, depth or None for full, decodes).  yi-34b's 68.8
+# GB of weights leave room for one sequence; qwen3-moe-235b-a22b (4.98 GB
+# a layer) and arctic-480b (27.3 GB a layer) are cut to the layers that fit
+# in about 60 GB (the init draws each period into its slice of the stack,
+# so it holds no second period while it draws); musicgen-large's
+# reference refuses audio decode, so it runs the prefill step alone, over
+# frame embeddings.
+ZOO_PRIMARY = ("qwen2-7b", "gemma3-27b", "moonshot-v1-16b-a3b",
+               "llama-3.2-vision-11b")
+ZOO_SECONDARY = (("yi-34b", 1, None, True),
+                 ("musicgen-large", LM_BATCH, None, False),
+                 ("qwen3-moe-235b-a22b", LM_BATCH, 11, True),
+                 ("arctic-480b", LM_BATCH, 2, True))
+# attention launches of one prefill: one an attention layer, cross layers
+# included (at the cut depths of the secondary MoE models)
+ZOO_PREFILL_LAUNCHES = {"qwen2-7b": 28, "gemma3-27b": 62,
+                        "moonshot-v1-16b-a3b": 48,
+                        "llama-3.2-vision-11b": 40, "yi-34b": 60,
+                        "musicgen-large": 48, "qwen3-moe-235b-a22b": 11,
+                        "arctic-480b": 2}
+# prefill(P) + 8 decode steps vs one forward of P+8 at bf16 (max abs error
+# over max(1, max |logit|), relative L2), as BF16_CONSISTENCY: about 1.5x
+# the first readings (on one H100 80GB HBM3 at 700 W, the same digits in
+# every run; arctic-480b's at 2 layers):
+#   qwen2-7b 0.02241 / 0.02076, gemma3-27b 0.007603 / 0.0307,
+#   llama-3.2-vision-11b 0.02541 / 0.02596, yi-34b 0.02938 / 0.02719,
+#   moonshot-v1-16b-a3b 0.193 / 0.1447, qwen3-moe-235b-a22b 0.06168 /
+#   0.03925, arctic-480b 0.004115 / 0.004118.
+# The MoE models' gaps carry routing flips: bf16 noise between the decode
+# route and the forward moves a token's k-th and (k+1)-th experts past
+# each other (moonshot: 5 to 25 of its 48 layers a step, every step;
+# qwen3-moe: 0 to 5 of 11), and a flipped expert changes the token's
+# output outright.
+ZOO_BF16_CONSISTENCY = {"qwen2-7b": (0.034, 0.031),
+                        "gemma3-27b": (0.0115, 0.046),
+                        "moonshot-v1-16b-a3b": (0.29, 0.22),
+                        "llama-3.2-vision-11b": (0.038, 0.039),
+                        "yi-34b": (0.044, 0.041),
+                        "qwen3-moe-235b-a22b": (0.093, 0.059),
+                        "arctic-480b": (0.0062, 0.0062)}
+# an MoE model's prefill + decode steps routed as the forward of P+8
+# (``RoutingReplay``): the bf16 gap without its routing flips, at the dense
+# models' level.  About 1.5x the first readings (the same card): moonshot
+# 0.03426 / 0.03277, qwen3-moe 0.008975 / 0.01013, arctic (no flips)
+# 0.004115 / 0.004118
+ZOO_REPLAYED_CONSISTENCY = {"moonshot-v1-16b-a3b": (0.052, 0.05),
+                            "qwen3-moe-235b-a22b": (0.0135, 0.0152),
+                            "arctic-480b": (0.0062, 0.0062)}
+# the full forward's head over its last ZOO_HEAD_ROWS positions (a GEMM of
+# B x 512 rows against the prefill step's B): the whole [B, S, V] f32
+# logits of gemma3-27b would be 12.9 GB beside its 54 GB of weights
+ZOO_HEAD_ROWS = 512
+# an MoE model's consistency check runs drop-free: capacity factor
+# min(E / k, 16) (E / k makes every expert's capacity the token count, as
+# the reference's tests/test_moe.py; arctic-480b's 64 would need 23 GB of
+# dispatch buffers), on the first sequence, and must drop nothing
+ZOO_MOE_CHECK_FACTOR = 16.0
+# the largest gap between the forward's k-th and (k+1)-th expert
+# probability at a layer where a decode step fed the forward's routing
+# (``RoutingReplay``) would itself have chosen other experts: such a flip
+# is bf16 noise only where the forward nearly ties.  About 1.5x the first
+# readings (the same card): moonshot 0.00156 (4 to 8 of 48 layers a
+# step), qwen3-moe 0.000484 (0 or 1 of 11); arctic chose as the forward
+# throughout and takes moonshot's.  The free run's flips, routing
+# upstream included, reached 0.00839 and 0.00185
+ZOO_FLIP_GAP = {"moonshot-v1-16b-a3b": 0.0023, "qwen3-moe-235b-a22b": 0.00073,
+                "arctic-480b": 0.0023}
+# models whose warm prefill and decode steps are profiled
+ZOO_PROFILED = ("qwen2-7b", "gemma3-27b", "moonshot-v1-16b-a3b")
+
+
+def zoo_check_config(cfg):
+    """The config of ``zoo_checks``' prefill/decode check: an MoE model's
+    at capacity factor min(E / k, ``ZOO_MOE_CHECK_FACTOR``)."""
+    import dataclasses
+    if not cfg.num_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=min(
+        cfg.num_experts / cfg.experts_per_token, ZOO_MOE_CHECK_FACTOR))
+
+
+def zoo_leaves(torch, params, gen):
+    """Make the init's zero leaves nonzero, in place: each cross layer's
+    gate 1.0 (tanh(0) would close it), the QKV biases and every RMS-norm
+    scale N(0, 0.02)."""
+    for k, v in params.items():
+        if isinstance(v, dict):
+            zoo_leaves(torch, v, gen)
+        elif k == "gate":
+            v.fill_(1.0)
+        elif k in ("bq", "bk", "bv", "scale"):
+            v.copy_(torch.randn(v.shape, generator=gen, device=v.device)
+                    * 0.02)
+
+
+class DropCount:
+    """While entered, counts the MoE assignments dropped at an expert's
+    capacity and all assignments (``moe._moe_local`` wrapped; 0-d tensors
+    summed on the card, read once at the end)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._moe_local
+        self.dropped, self.total = [], 0
+
+        def counted(*args):
+            out = self.orig(*args)
+            self.dropped.append((~out[3]).sum())
+            self.total += out[3].numel()
+            return out
+        moe._moe_local = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._moe_local = self.orig
+
+    def read(self):
+        return (int(self.torch.stack(self.dropped).sum())
+                if self.dropped else 0), self.total
+
+
+class RoutingLog:
+    """While entered, records the experts [T, k] that every MoE layer
+    routes its tokens to and their probabilities [T, E], call by call
+    (``moe.top_k_routing`` wrapped)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.top_k_routing
+        self.experts, self.probs = [], []
+
+        def logged(logits, k):
+            out = self.orig(logits, k)
+            self.experts.append(out[1])
+            self.probs.append(out[2])
+            return out
+        moe.top_k_routing = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_routing = self.orig
+
+
+class RoutingReplay:
+    """While entered, every MoE layer routes as the forward of P+C
+    positions did (``fwd``: its records, layer by layer, each [rows
+    (P+C), k]): the first call of each layer (the prefill) takes the
+    forward's experts at positions 0..P-1, its i-th next call (decode step
+    i) those at position P+i; the weights are the call's own
+    probabilities at those experts, normalised as ``top_k_routing``'s.
+    ``own`` records the experts each decode call would have chosen from
+    its own logits (C x layers, each [rows, k]): with every layer fed the
+    forward's routing, where these differ from the forward's, bf16 noise
+    alone moved the layer's k-th and (k+1)-th experts past each other."""
+
+    def __init__(self, torch, fwd, rows, P, C):
+        self.torch, self.P = torch, P
+        self.fwd = [e.reshape(rows, P + C, -1) for e in fwd]
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe.top_k_routing
+        self.own = []
+        calls = iter(range(1 << 30))
+        torch, P, fwd = self.torch, self.P, self.fwd
+
+        def replayed(logits, k):
+            c = next(calls)
+            e, i = fwd[c % len(fwd)], c // len(fwd)
+            if i:
+                self.own.append(self.orig(logits, k)[1])
+            experts = e[:, :P].reshape(-1, k) if i == 0 else e[:, P + i - 1]
+            probs = torch.softmax(logits.to(torch.float32), dim=-1)
+            w = torch.gather(probs, 1, experts)
+            return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), \
+                experts, probs
+        moe.top_k_routing = replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.top_k_routing = self.orig
+
+
+def routing_flips(torch, dec, fwd, rows, P, C):
+    """For each of C decode steps, the MoE layers whose expert choice (as
+    a set, over ``rows`` sequences) differs from the forward's at the
+    same position: ``dec`` the decode steps' records (C x layers, each
+    [rows, k]), ``fwd`` the forward's (layers, each [rows (P+C), k])."""
+    L = len(fwd)
+    flips = []
+    for i in range(C):
+        flips.append([
+            l for l in range(L)
+            if not torch.equal(
+                dec[i * L + l].sort(-1).values,
+                fwd[l].reshape(rows, P + C, -1)[:, P + i].sort(-1).values)])
+    return flips
+
+
+def flip_gaps(torch, flips, probs, rows, P, C, k):
+    """For each flipped (step i, layer l) of ``flips`` (``routing_flips``),
+    the forward's gap between its k-th and (k+1)-th expert probability at
+    position P+i (the largest over ``rows`` sequences): ``probs`` the
+    forward's records (layers, each [rows (P+C), E])."""
+    gaps = []
+    for i, layers in enumerate(flips):
+        for l in layers:
+            p = probs[l].reshape(rows, P + C, -1)[:, P + i].sort(
+                -1, descending=True).values
+            gaps.append(float((p[:, k - 1] - p[:, k]).max()))
+    return gaps
+
+
+def zoo_batch(torch, cfg, B, S, gen, dev):
+    """Prompts [B, S] (the audio family: frame embeddings [B, S,
+    encoder_dim]) and the VLM's encoder embeddings, from ``gen``."""
+    if cfg.family == "audio":
+        batch = {"frame_embeddings": torch.randn(
+            (B, S, cfg.encoder_dim), generator=gen, device=dev)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                         generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        batch["encoder_embeddings"] = torch.randn(
+            (B, cfg.num_encoder_tokens, cfg.encoder_dim), generator=gen,
+            device=dev)
+    return batch
+
+
+def _upto(batch, P, rows=None):
+    """The batch's first ``rows`` sequences and, of the positions, the
+    first P (the encoder embeddings whole)."""
+    return {k: (v[:rows] if k == "encoder_embeddings" else v[:rows, :P])
+            for k, v in batch.items()}
+
+
+def zoo_checks(torch, model, params, batch, P, C, rows):
+    """The prefill step's last-position logits against the full forward's
+    head (over its last ``ZOO_HEAD_ROWS`` positions), and with ``C`` > 0
+    the prefill step of P positions plus C teacher-forced decode steps
+    against the head of one forward of P+C over those positions, on the
+    first ``rows`` sequences; an MoE model at capacity factor
+    ``ZOO_MOE_CHECK_FACTOR``, where it must drop nothing.  Returns a dict:
+    ``head_err`` (over scale), ``warm_ms`` (the prefill step), ``drops``
+    (dropped and all assignments of the prefill step at the config's
+    capacity factor), and with C: ``err`` (max over scale), ``rel``
+    (relative L2), ``scale`` (max(1, max |logit|)), ``step_errs`` (each
+    step's max error over scale), ``decode_ms`` (the C warm steps) and,
+    for an MoE model, ``flips`` (each step's MoE layers whose experts
+    differ from the forward's, ``routing_flips``), ``gaps`` (the
+    forward's gap between the k-th and (k+1)-th expert probability at
+    each flip, ``flip_gaps``), ``replayed`` (max error over scale and
+    relative L2 of the prefill and decode steps routed as the forward,
+    ``RoutingReplay``), ``noise_flips`` and ``noise_gaps`` (the same for
+    the experts the replayed decode steps would have chosen themselves);
+    always ``trunk_same`` (the prefill step's logits bitwise the head on
+    the forward's last row alone), ``norm_diff`` (the bf16 elements of the
+    final norm's last row that differ between ``ZOO_HEAD_ROWS`` rows and
+    1) and ``gemm_err`` (the head's f32 GEMM over ``ZOO_HEAD_ROWS`` rows
+    against over 1 on the same normed rows, max over scale)."""
+    from repro_torch.fl.distributed import make_prefill_step, make_serve_step
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    prefill = make_prefill_step(cfg, cache_len=P + 8)
+    with DropCount(torch) as drops, torch.no_grad():
+        last, cache = prefill(params, _upto(batch, P))
+    del cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        last, cache = prefill(params, _upto(batch, P))
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    del cache
+    require(bool(torch.isfinite(last).all()), f"{cfg.name}: prefill logits "
+            f"not finite")
+    with torch.no_grad():
+        x = T.forward_hidden(params, cfg, _upto(batch, P))[0]
+        full = T._head(params, cfg, x[:, -ZOO_HEAD_ROWS:])[:, -1]
+        one = T._head(params, cfg, x[:, -1:])[:, 0]
+        # the head's two steps apart: its final norm's last row over
+        # ZOO_HEAD_ROWS rows and over 1 (bf16 outputs), and its f32 GEMM
+        # over ZOO_HEAD_ROWS rows and over 1 on the same normed rows
+        norm = L.rms_norm(params["final_norm"], x[:, -ZOO_HEAD_ROWS:])
+        w = (params["embed"].T if cfg.tie_embeddings
+             else params["lm_head"]).to(torch.float32)
+        gemm_gap = ((norm.to(torch.float32) @ w)[:, -1]
+                    - (norm[:, -1:].to(torch.float32) @ w)[:, 0])
+        norm_diff = int((norm[:, -1:] != L.rms_norm(params["final_norm"],
+                                                    x[:, -1:])).sum())
+    scale = max(1.0, float(full.abs().max()))
+    head_err = float((last[:, 0] - full).abs().max()) / scale
+    require(head_err <= HEAD_TOL, f"{cfg.name}: the prefill step's "
+            f"last-position logits are {head_err:.3g} x scale off the full "
+            f"forward's")
+    # the head on the forward's last row alone: the prefill step's logits
+    # bit for bit where the two trunks agree bit for bit
+    out = {"head_err": head_err, "warm_ms": warm_ms, "drops": drops.read(),
+           "trunk_same": bool(torch.equal(one, last[:, 0])),
+           "norm_diff": norm_diff,
+           "gemm_err": float(gemm_gap.abs().max()) / scale}
+    del x, full, last, one, norm, w, gemm_gap
+    if not C:
+        return out
+    cfg = zoo_check_config(cfg)
+    prefill = make_prefill_step(cfg, cache_len=P + C + 8)
+    serve = make_serve_step(cfg)
+    sub = _upto(batch, P + C, rows)
+
+    def prefill_and_decode():
+        _, cache = prefill(params, _upto(sub, P))
+        dec = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(C):
+            step, cache = serve(params, cache,
+                                {"tokens": sub["tokens"][:, P + i:P + i + 1]})
+            dec.append(step[:, 0])
+        torch.cuda.synchronize()
+        return torch.stack(dec, dim=1), (time.perf_counter() - t0) * 1e3
+
+    with DropCount(torch) as check_drops, RoutingLog() as routes, \
+            torch.no_grad():
+        x = T.forward_hidden(params, cfg, sub)[0]
+        want = T._head(params, cfg, x[:, P:P + C])
+        del x
+        n0 = len(routes.experts)
+        dec, out["decode_ms"] = prefill_and_decode()
+    require(bool(torch.isfinite(want).all()), f"{cfg.name}: forward logits "
+            f"not finite")
+    scale = max(1.0, float(want.abs().max()))
+    if cfg.num_experts:
+        # the records: the forward's (a layer each), the prefill's, then
+        # the decode steps'
+        fwd = routes.experts[:n0]
+        out["flips"] = routing_flips(torch, routes.experts[2 * n0:], fwd,
+                                     rows, P, C)
+        with RoutingReplay(torch, fwd, rows, P, C) as replay, \
+                torch.no_grad():
+            replayed = prefill_and_decode()[0]
+        out["replayed"] = (float((replayed - want).abs().max()) / scale,
+                           float((replayed - want).norm() / want.norm()))
+        k = cfg.experts_per_token
+        out["noise_flips"] = routing_flips(torch, replay.own, fwd, rows, P, C)
+        out["noise_gaps"] = flip_gaps(torch, out["noise_flips"],
+                                      routes.probs[:n0], rows, P, C, k)
+        out["gaps"] = flip_gaps(torch, out["flips"], routes.probs[:n0], rows,
+                                P, C, k)
+    dropped, total = check_drops.read()
+    require(dropped == 0, f"{cfg.name}: the consistency check dropped "
+            f"{dropped} of {total} assignments at capacity factor "
+            f"{cfg.capacity_factor}")
+    out.update(err=float((dec - want).abs().max()) / scale,
+               rel=float((dec - want).norm() / want.norm()), scale=scale,
+               step_errs=[float(x) / scale for x in
+                          (dec - want).abs().amax(dim=(0, 2))])
+    return out
+
+
+def zoo_model(torch, dev, arch, B, depth, decodes, prof_ok):
+    """Serve one zoo model through ``generate`` (or, for the audio family,
+    the prefill step alone) at published width, held to its attention
+    launches, and run ``zoo_checks``.  Returns the prefill's launches and
+    the distinct shapes it launched the attention kernel at."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_prefill_step
+    from repro_torch.kernels import common
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import generate
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    zoo_leaves(torch, params, gen)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(x.numel() for x in _leaves(params))
+    batch = zoo_batch(torch, cfg, B, LM_PROMPT + LM_CHECK, gen, dev)
+    want = {"attention": ZOO_PREFILL_LAUNCHES[arch]}
+    common.reset_launches()
+    if decodes:
+        extra = ({"encoder_embeddings": batch["encoder_embeddings"]}
+                 if cfg.family == "vlm" else None)
+        toks, st = generate(model, params, batch["tokens"][:, :LM_PROMPT],
+                            LM_GEN, temperature=0.8, generator=gen,
+                            extra=extra)
+        got = dict(common.LAUNCHES)
+        shapes = set(common.SHAPES["attention"])
+        require(tuple(toks.shape) == (B, LM_GEN) and 0 <= int(toks.min())
+                and int(toks.max()) < cfg.vocab_size,
+                f"{arch}: sampled tokens out of range")
+        served = (f"first prefill {B}x{LM_PROMPT} {st['prefill_ms']:.2f} ms,"
+                  f" decode {LM_GEN} tokens {st['decode_tokens_per_s']:.2f} "
+                  f"tok/s ({st['decode_s']:.3f} s); seq 0: "
+                  f"{toks[0].tolist()}")
+        decode_launches = st["launches_decode"]
+    else:
+        prefill = make_prefill_step(cfg, cache_len=LM_PROMPT + 8)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = prefill(params, _upto(batch, LM_PROMPT))
+        torch.cuda.synchronize()
+        got = dict(common.LAUNCHES)
+        shapes = set(common.SHAPES["attention"])
+        require(tuple(last.shape) == (B, 1, cfg.vocab_size)
+                and bool(torch.isfinite(last).all()),
+                f"{arch}: prefill logits {tuple(last.shape)} not finite")
+        served = (f"first prefill {B}x{LM_PROMPT} "
+                  f"{(time.perf_counter() - t0) * 1e3:.2f} ms (no decode: "
+                  f"audio)")
+        decode_launches = {}
+        del last
+    require(got == want and decode_launches == {},
+            f"{arch}: launches {got}, decode {decode_launches}, want {want} "
+            f"in prefill and none in decode")
+    cut = f", cut to {depth} of {get_config(arch).num_layers} layers" \
+        if depth else ""
+    log(f"{arch}: {n_params / 1e9:.3f} B params ({cfg.param_dtype}, "
+        f"{cfg.num_layers} layers{cut}, d_model {cfg.d_model}) drawn on the "
+        f"card in {t_init:.2f} s (peak {init_peak:.2f} GiB); B = {B}; "
+        f"{served}; launches prefill {got}"
+        f" decode {decode_launches}")
+    rows = 1 if cfg.num_experts else B
+    res = zoo_checks(torch, model, params, batch, LM_PROMPT,
+                     LM_CHECK if decodes else 0, rows)
+    dropped, total = res["drops"]
+    moe = (f"; dropped {dropped} of {total} assignments "
+           f"({100 * dropped / total:.3f} %) at capacity factor "
+           f"{cfg.capacity_factor}" if cfg.num_experts else "")
+    msg = (f"{arch}: warm prefill step {B}x{LM_PROMPT} {res['warm_ms']:.2f} "
+           f"ms (its logits {res['head_err']:.3g} x scale off the full "
+           f"forward's, bound {HEAD_TOL}; bitwise the head on the "
+           f"forward's last row: {res['trunk_same']}; between "
+           f"{ZOO_HEAD_ROWS} rows and 1, the final norm's last row differs "
+           f"in {res['norm_diff']} of {B * cfg.d_model} elements and the "
+           f"head GEMM by {res['gemm_err']:.3g} x scale){moe}")
+    if decodes:
+        err, rel, scale = res["err"], res["rel"], res["scale"]
+        bounds = ZOO_BF16_CONSISTENCY[arch]
+        factor = (f", capacity factor "
+                  f"{zoo_check_config(cfg).capacity_factor:.4g}"
+                  if cfg.num_experts else "")
+        msg += (f"; bf16 prefill({LM_PROMPT})+{LM_CHECK} steps vs prefill("
+                f"{LM_PROMPT + LM_CHECK}) on {rows} sequence(s){factor}: max "
+                f"err {err:.4g} x scale, rel L2 {rel:.4g} (bounds {bounds}, "
+                f"max |logit| {scale:.4g}); each step's max err x scale "
+                f"{[round(e, 5) for e in res['step_errs']]}; warm decode "
+                f"{LM_CHECK * rows / res['decode_ms'] * 1e3:.2f} tok/s on "
+                f"{rows} sequence(s)")
+        if "flips" in res:
+            noise_gap = max(res["noise_gaps"], default=0.0)
+            msg += (f"; MoE layers routed otherwise than the forward, a "
+                    f"step: {res['flips']} (the forward's k-th less "
+                    f"(k+1)-th probability there at most "
+                    f"{max(res['gaps'], default=0.0):.3g}); routed as the "
+                    f"forward: max err {res['replayed'][0]:.4g} x scale, "
+                    f"rel L2 {res['replayed'][1]:.4g} (bounds "
+                    f"{ZOO_REPLAYED_CONSISTENCY[arch]}), the steps' own "
+                    f"choice otherwise in {res['noise_flips']}, gap at most "
+                    f"{noise_gap:.3g} (bound {ZOO_FLIP_GAP[arch]})")
+    log(msg + f"; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if decodes:
+        require(err <= bounds[0] and rel <= bounds[1],
+                f"{arch}: decode disagrees with prefill")
+    if "replayed" in res:
+        rb = ZOO_REPLAYED_CONSISTENCY[arch]
+        require(res["replayed"][0] <= rb[0] and res["replayed"][1] <= rb[1],
+                f"{arch}: decode routed as the forward disagrees with it")
+        require(noise_gap <= ZOO_FLIP_GAP[arch],
+                f"{arch}: a decode step fed the forward's routing chose "
+                f"experts whose forward gap {noise_gap:.3g} is past bf16 "
+                f"noise")
+    if prof_ok and arch in ZOO_PROFILED:
+        profile_serving(torch, model, params,
+                        batch["tokens"][:, :LM_PROMPT], arch)
+    del params, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got, shapes
+
+
+def phase_lm_zoo(torch, dev, prof_ok):
+    """Serve the zoo's primary models, then its secondary ones, each
+    through ``zoo_model``, then hold the attention kernel to its plain
+    version at every shape those prefills launched it at
+    (``zoo_attention_checks``).  Returns the attention kernel's launches
+    over the phase."""
+    total, shapes = 0, {}
+    runs = [(arch, LM_BATCH, None, True) for arch in ZOO_PRIMARY]
+    for arch, B, depth, decodes in runs + list(ZOO_SECONDARY):
+        got, seen = zoo_model(torch, dev, arch, B, depth, decodes, prof_ok)
+        total += got["attention"]
+        for shp in seen:
+            shapes.setdefault(shp, []).append(arch)
+    zoo_attention_checks(torch, dev, shapes)
+    return total
+
+
+def zoo_attention_checks(torch, dev, shapes):
+    """The attention kernel at each of ``shapes`` (shape -> the models
+    that launch it there) on seeded bf16 and f32 inputs against its plain
+    version, at ``BF16_ATTN_TOL`` and ``F32_ATTN_TOL`` elementwise."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for shp, archs in sorted(shapes.items()):
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        errs = []
+        for dtype, (atol, rtol) in ((torch.bfloat16, BF16_ATTN_TOL),
+                                    (torch.float32, F32_ATTN_TOL)):
+            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 88, dev)
+            got = flash_attention_cuda(q, k, v, causal=bool(causal),
+                                       window=window)
+            want = ref.attention_ref(q, k, v, causal=bool(causal),
+                                     window=window)
+            err = (got.float() - want.float()).abs()
+            errs.append(float(err.max()))
+            require(bool((err <= atol + rtol * want.float().abs()).all()),
+                    f"attention {dtype} at {shp} ({archs}): max abs err "
+                    f"{errs[-1]:.3g} over tolerance")
+            del q, k, v, got, want, err
+        log(f"attention at {shp} ({', '.join(archs)}): kernel vs plain, "
+            f"max abs err bf16 {errs[0]:.3g} (atol {BF16_ATTN_TOL[0]} + "
+            f"rtol {BF16_ATTN_TOL[1]}), f32 {errs[1]:.3g} (atol "
+            f"{F32_ATTN_TOL[0]} + rtol {F32_ATTN_TOL[1]})")
+    torch.cuda.empty_cache()
+
+
+def zoo_timing_cases():
+    """phase_timing's rows at the zoo's attention shapes (B = 4, the
+    3072-token prompt, bf16): qwen2-7b's layers, gemma3-27b's local and
+    global ones and llama-3.2-vision-11b's cross layers, each with its
+    launches in one prefill."""
+    from repro_torch.configs import get_config
+    rows = []
+    for arch, kind, n in (("qwen2-7b", "global", 28),
+                          ("gemma3-27b", "local", 52),
+                          ("gemma3-27b", "global", 10),
+                          ("llama-3.2-vision-11b", "cross", 8)):
+        cfg = get_config(arch)
+        T = cfg.num_encoder_tokens if kind == "cross" else LM_PROMPT
+        rows.append((f"attention@{arch}/{kind}", "attention",
+                     ((LM_BATCH, cfg.num_heads, LM_PROMPT, cfg.head_dim),
+                      (LM_BATCH, cfg.num_kv_heads, T, cfg.head_dim),
+                      (int(kind != "cross"),
+                       cfg.window_size if kind == "local" else 0)), n))
+    return rows
+
+
 # LM training phase: recurrentgemma-2b and rwkv6-3b at published width and
 # depth (bf16, remat), FedCGD over 8 silos of 2 sequences of 256 tokens
 # (4096 tokens a round), 3 rounds.  recurrentgemma-2b's S x vocab = 65.5 M
@@ -2277,6 +2870,10 @@ def main() -> int:
     shapes.update(lm_shapes)
     log(f"[LM serving] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    zoo_launches = phase_lm_zoo(torch, dev, prof_ok)
+    log(f"[LM zoo] done in {time.perf_counter() - t0:.2f} s; attention "
+        f"launched {zoo_launches} times over its prefills")
+    t0 = time.perf_counter()
     tr_launches, tr_shapes = phase_lm_train(torch, dev, prof_ok)
     log(f"[LM training] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
@@ -2297,6 +2894,8 @@ def main() -> int:
               (f"persample_gradnorm@Rx{RESNET_CELLS}", "persample_gradnorm",
                rc_shapes["persample_gradnorm"],
                rc_launches["persample_gradnorm"])]
+    # the LM zoo phase: attention at its models' shapes
+    cases += zoo_timing_cases()
     rows = phase_timing(torch, dev, cases, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")

@@ -3,8 +3,7 @@
 A single frozen dataclass expresses every assigned architecture family:
 dense GQA transformers, MoE (incl. shared-expert and dense-residual
 variants), RWKV6 (attention-free), RG-LRU hybrids (Griffin/RecurrentGemma),
-VLM cross-attention decoders and audio-token decoders.  The port runs the
-RG-LRU hybrid and RWKV6 families so far (``models/transformer.py``).
+VLM cross-attention decoders and audio-token decoders.
 
 Layer heterogeneity (sliding-window vs global attention, recurrent vs
 attention, self vs cross attention) is expressed with ``block_pattern``: a

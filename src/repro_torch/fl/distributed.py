@@ -71,7 +71,9 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
 
 def make_serve_step(cfg: ModelConfig):
     """serve_step(params, cache, batch) -> (logits [B,1,V], new cache):
-    one decode step (plain torch), with no gradient recorded."""
+    one decode step (plain torch), with no gradient recorded.  ``batch``
+    is passed through whole: ``tokens`` [B,1], or for the audio family
+    ``frame_embeddings`` [B,1,encoder_dim]."""
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
@@ -84,7 +86,9 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
     """prefill_step(params, batch) -> (logits [B,1,V] of the last
     position, cache for ``cache_len`` positions): the trunk over the
     prompt, then the head on its last position only (the [B,S,V] head is
-    never formed)."""
+    never formed).  ``batch`` is passed through whole: ``tokens`` or the
+    audio family's ``frame_embeddings``, and the VLM's
+    ``encoder_embeddings``, whose keys and values the cache keeps."""
 
     @torch.no_grad()
     def prefill_step(params, batch):

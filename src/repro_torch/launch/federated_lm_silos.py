@@ -11,7 +11,8 @@ the aggregation runs as ONE schedule-weighted train step
 
 By default it trains the full configuration on the GPU (random weights
 from ``--seed``); ``--reduced`` takes the config's ``reduced()`` variant,
-as the JAX example always does.
+as the JAX example always does.  The batches are ``launch.train.lm_batch``'s
+(the audio and VLM families' with their front ends' inputs).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core import Problem, fscd
 from repro_torch.data import synthetic_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.distributed import make_train_step, silo_weights
+from repro_torch.launch.train import lm_batch
 from repro_torch.models import transformer as T
 
 
@@ -75,8 +77,7 @@ def run(cfg, *, rounds: int, silos: int = 8, per_silo_batch: int = 2,
             ds.inputs[np.concatenate(takes)]).to(dev)      # [silos*b, seq+1]
         w = silo_weights(sched.mask, silos).repeat_interleave(
             per_silo_batch).to(dev)
-        params, metrics = step(params, {"tokens": toks[:, :-1],
-                                        "targets": toks[:, 1:],
+        params, metrics = step(params, {**lm_batch(cfg, toks, rng),
                                         "schedule_weights": w})
         history.append({"metrics": metrics, "mask": sched.mask.copy(),
                         "scheduled": int(sched.num_scheduled),
@@ -90,8 +91,7 @@ def run(cfg, *, rounds: int, silos: int = 8, per_silo_batch: int = 2,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b",
-                    choices=list_archs())
+    ap.add_argument("--arch", default="qwen2-7b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="train the config's reduced() variant")
     ap.add_argument("--rounds", type=int, default=20)

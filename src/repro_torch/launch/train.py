@@ -9,6 +9,9 @@ By default it trains the full configuration (published width and depth,
 the config's dtype) on the GPU, with random weights drawn from ``--seed``
 on the device; ``--reduced`` trains the config's ``reduced()`` variant.
 ``--save PATH`` writes the final params with ``checkpoint.save_pytree``.
+The audio family trains on random frame embeddings in place of the
+tokens, and the VLM's batches carry zero encoder embeddings (the stubs
+of the reference's front ends).
 """
 from __future__ import annotations
 
@@ -25,6 +28,25 @@ from repro_torch.data import synthetic_token_dataset
 from repro_torch.device import resolve_device
 from repro_torch.fl.distributed import make_train_step
 from repro_torch.models import transformer as T
+
+
+def lm_batch(cfg, toks, rng):
+    """The train batch of token rows ``toks`` [B, S+1], as the reference's
+    ``launch/train.py`` makes it: targets the rows' last S tokens, inputs
+    their first S, or for the audio family ``frame_embeddings`` [B, S,
+    encoder_dim] (N(0, 1) from ``rng``); the VLM's also
+    ``encoder_embeddings`` [B, num_encoder_tokens, encoder_dim] (zeros)."""
+    B, S = toks.shape[0], toks.shape[1] - 1
+    batch = {"targets": toks[:, 1:]}
+    if cfg.family == "audio":
+        batch["frame_embeddings"] = torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.encoder_dim), dtype=np.float32)).to(toks.device)
+    else:
+        batch["tokens"] = toks[:, :-1]
+    if cfg.family == "vlm":
+        batch["encoder_embeddings"] = torch.zeros(
+            (B, cfg.num_encoder_tokens, cfg.encoder_dim), device=toks.device)
+    return batch
 
 
 def train(cfg, *, steps: int, batch: int, seq: int, lr: float, device,
@@ -46,8 +68,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float, device,
     for i in range(steps):
         toks = torch.from_numpy(
             ds.inputs[rng.integers(0, len(ds.inputs), size=batch)]).to(dev)
-        params, metrics = step(params, {"tokens": toks[:, :-1],
-                                        "targets": toks[:, 1:]})
+        params, metrics = step(params, lm_batch(cfg, toks, rng))
         if i % log_every == 0 or i == steps - 1:
             log(f"step {i:4d} loss={float(metrics['loss']):.4f} "
                 f"gnorm={float(metrics['grad_norm']):.3f} "
@@ -57,8 +78,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float, device,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b",
-                    choices=list_archs())
+    ap.add_argument("--arch", default="qwen2-7b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="train the config's reduced() variant")
     ap.add_argument("--steps", type=int, default=100)

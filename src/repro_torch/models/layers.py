@@ -23,11 +23,15 @@ from repro_torch.kernels import ops
 
 
 def dense_init(gen: torch.Generator, shape, scale: Optional[float] = None,
-               dtype=torch.float32):
+               dtype=torch.float32, out=None):
+    """N(0, scale^2) of ``shape`` (scale 1/sqrt(fan_in) by default); with
+    ``out`` (a tensor of that shape) drawn straight into it, the same
+    numbers (``randn`` is ``normal_`` on a new tensor)."""
     fan_in = shape[0] if len(shape) >= 2 else 1
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=gen.device).mul_(scale)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+    return out.normal_(generator=gen).mul_(scale)
 
 
 def embed_init(gen: torch.Generator, shape, dtype=torch.float32):
@@ -91,19 +95,47 @@ def rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
+def sinusoidal_pos(positions, dim):
+    """positions [...] int -> [..., dim] f32: sin then cos of position x
+    10000^(-i / (dim/2 - 1)), i < dim/2."""
+    half = dim // 2
+    freq = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                   device=positions.device)
+                     * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention
 
 
-def attention_params_init(gen, cfg: ModelConfig, dtype):
+def attention_params_init(gen, cfg: ModelConfig, dtype, cross: bool = False,
+                          out=None):
+    """wq/wk/wv/wo; ``bq``/``bk``/``bv`` (zeros) with ``cfg.qkv_bias``,
+    ``q_norm``/``k_norm`` with ``cfg.qk_norm``, and for a cross layer the
+    f32 scalar ``gate`` (0: tanh(0) closes it), as the JAX package's.
+    With ``out`` (a tree of the same leaves) the projections are drawn
+    into its leaves."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return {
-        "wq": dense_init(gen, (d, H, hd), dtype=dtype),
-        "wk": dense_init(gen, (d, KV, hd), dtype=dtype),
-        "wv": dense_init(gen, (d, KV, hd), dtype=dtype),
+    dev = gen.device
+    o = out or {}
+    p = {
+        "wq": dense_init(gen, (d, H, hd), dtype=dtype, out=o.get("wq")),
+        "wk": dense_init(gen, (d, KV, hd), dtype=dtype, out=o.get("wk")),
+        "wv": dense_init(gen, (d, KV, hd), dtype=dtype, out=o.get("wv")),
         "wo": dense_init(gen, (H, hd, d), scale=1.0 / math.sqrt(H * hd),
-                         dtype=dtype),
+                         dtype=dtype, out=o.get("wo")),
     }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", H), ("bk", KV), ("bv", KV)):
+            p[name] = torch.zeros((heads, hd), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_init(hd, dtype, dev)
+        p["k_norm"] = rms_norm_init(hd, dtype, dev)
+    if cross:
+        p["gate"] = torch.zeros((), dtype=torch.float32, device=dev)
+    return p
 
 
 def _expand_kv(k, H):
@@ -144,28 +176,55 @@ def _project(x, w):
         B, S, w.shape[1], w.shape[2])
 
 
-def multihead_attention(params, cfg: ModelConfig, x, *, q_pos=None,
-                        causal=True, window=0, rope_theta=None, cache=None):
-    """GQA self attention.  x [B,S,d]; q_pos [B or 1, S] int.
+def multihead_attention(params, cfg: ModelConfig, x, *, kv_x=None,
+                        q_pos=None, causal=True, window=0, rope_theta=None,
+                        cache=None, cache_fixed_kv=False):
+    """GQA attention.  x [B,S,d]; q_pos [B or 1, S] int; ``kv_x``
+    [B,T,d] (default x) feeds the keys and values (cross attention).
 
-    Prefill (``cache`` None): queries and keys sit at positions 0..S-1,
-    and ``ops.attention`` applies the causal and window masks.  Decode
+    The QKV biases follow the projections, QK norm comes before rope
+    (rope only with ``q_pos``), and a ``gate`` scales the output by
+    tanh(gate).  Prefill (``cache`` None) runs ``ops.attention`` with
+    queries and keys at positions 0..S-1 (causal and window masks) or,
+    for cross attention, non-causal over the T encoder keys.  Decode
     (``cache`` given, S == 1): the new key and value are written into the
     ring buffer {'k','v','slot_pos','next_slot'} at ``next_slot`` and
-    attention runs over the buffer, masked by each slot's position.
-    Returns (out [B,S,d], new_cache or None, (k, v) after rope)."""
+    attention runs over the buffer, masked by each slot's position; with
+    ``cache_fixed_kv`` it attends over the cached keys and values {'k',
+    'v'} (cross attention's, from the prefill) and writes nothing.
+    Returns (out [B,S,d], new_cache or None, (k, v) after norm and
+    rope)."""
     B, S, d = x.shape
     H = cfg.num_heads
     q = _project(x, params["wq"])
-    k = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"]
+    fresh_kv = not (cache is not None and cache_fixed_kv)
+    if fresh_kv:
+        src = x if kv_x is None else kv_x
+        k = _project(src, params["wk"])
+        v = _project(src, params["wv"])
+        if "bk" in params:
+            k, v = k + params["bk"], v + params["bv"]
+    else:
+        k, v = cache["k"], cache["v"]
+    if "q_norm" in params:
+        q = rms_norm(params["q_norm"], q)
+        if fresh_kv:
+            k = rms_norm(params["k_norm"], k)
     theta = rope_theta if rope_theta is not None else cfg.rope_theta
     if cfg.pos_embedding == "rope" and q_pos is not None:
         q = rope(q, q_pos, theta)
-        k = rope(k, q_pos, theta)
+        if fresh_kv:
+            k = rope(k, q_pos, theta)
 
     new_cache = None
-    if cache is not None:
+    if cache is not None and cache_fixed_kv:
+        new_cache = cache
+        bias = torch.zeros((B, S, k.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        out = _attend(q, _expand_kv(k, H), _expand_kv(v, H), bias)
+    elif cache is not None:
         slot = cache["next_slot"].reshape(1).long()
         k = cache["k"].index_copy(1, slot, k)
         v = cache["v"].index_copy(1, slot, v)
@@ -181,19 +240,23 @@ def multihead_attention(params, cfg: ModelConfig, x, *, q_pos=None,
                             v.transpose(1, 2), causal=causal,
                             window=window).transpose(1, 2)
     wo = params["wo"]
-    out = out.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])
-    return out.reshape(B, S, -1), new_cache, (k, v)
+    out = (out.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(
+        B, S, -1)
+    if "gate" in params:
+        out = out * torch.tanh(params["gate"]).to(out.dtype)
+    return out, new_cache, (k, v)
 
 
 # ---------------------------------------------------------------------------
 # MLPs
 
 
-def swiglu_init(gen, d, dff, dtype):
+def swiglu_init(gen, d, dff, dtype, out=None):
+    o = out or {}
     return {
-        "w_gate": dense_init(gen, (d, dff), dtype=dtype),
-        "w_up": dense_init(gen, (d, dff), dtype=dtype),
-        "w_down": dense_init(gen, (dff, d), dtype=dtype),
+        "w_gate": dense_init(gen, (d, dff), dtype=dtype, out=o.get("w_gate")),
+        "w_up": dense_init(gen, (d, dff), dtype=dtype, out=o.get("w_up")),
+        "w_down": dense_init(gen, (dff, d), dtype=dtype, out=o.get("w_down")),
     }
 
 

@@ -1,0 +1,152 @@
+"""Mixture-of-Experts FFN: top-k routing with a sort-based, capacity-bounded
+dispatch (counterpart of ``repro/models/moe.py``, its path with every
+expert local; the expert-parallel ``shard_map`` path waits for the
+sharding port).
+
+Routing decisions follow the JAX package's exactly: the router logits are
+f32 sums of the products of x and the router in x's dtype (never rounded
+to bf16), top-k breaks ties at the lower expert index, and an
+assignment's arrival rank within its expert comes from a stable sort of
+the flattened (token, slot) order, so the last tokens of the batch are
+the first dropped when an expert is over capacity.  The expert products
+are ``torch.bmm`` (no TPU kernel covers MoE: the JAX package computes
+them with ``einsum`` too).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+
+
+def moe_params_init(gen, cfg: ModelConfig, dtype, out=None):
+    """The router [d, E] in f32, the experts' SwiGLU weights stacked on a
+    leading [E] axis, and the ``shared`` / ``dense_residual`` SwiGLUs
+    where the config has them; with ``out`` (a tree of the same leaves)
+    each is drawn into its leaf."""
+    d, dff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    o = out or {}
+    p = {
+        "router": dense_init(gen, (d, E), scale=0.02, dtype=torch.float32,
+                             out=o.get("router")),
+        "w_gate": dense_init(gen, (E, d, dff), scale=1 / math.sqrt(d),
+                             dtype=dtype, out=o.get("w_gate")),
+        "w_up": dense_init(gen, (E, d, dff), scale=1 / math.sqrt(d),
+                           dtype=dtype, out=o.get("w_up")),
+        "w_down": dense_init(gen, (E, dff, d), scale=1 / math.sqrt(dff),
+                             dtype=dtype, out=o.get("w_down")),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = swiglu_init(gen, d, cfg.num_shared_experts * dff, dtype,
+                                  out=o.get("shared"))
+    if cfg.moe_dense_ff:
+        p["dense_residual"] = swiglu_init(gen, d, cfg.moe_dense_ff, dtype,
+                                          out=o.get("dense_residual"))
+    return p
+
+
+def _capacity(tokens: int, k: int, num_experts: int, factor: float) -> int:
+    """Capacity per expert, floored at min(tokens, 32): a decode step (a
+    token a sequence) never drops an assignment."""
+    cap = int(math.ceil(tokens * k / num_experts * factor))
+    return max(cap, min(tokens, 32))
+
+
+def top_k_routing(router_logits, k):
+    """router_logits [T,E] -> (weights [T,k] f32, experts [T,k] int64,
+    probs [T,E] f32).  Ties go to the lower expert index (a stable
+    descending sort), as ``jax.lax.top_k``; the k weights are normalised
+    to sum to 1."""
+    probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
+    experts = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+    weights = torch.gather(probs, 1, experts)
+    weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
+    return weights, experts, probs
+
+
+def _positions_in_expert(flat_experts, num_experts):
+    """Each assignment's arrival rank within its expert, in the order of
+    ``flat_experts`` [N] (int in [0, E)).  Returns (pos [N], group sizes
+    [E])."""
+    n = flat_experts.shape[0]
+    order = torch.argsort(flat_experts, stable=True)
+    group_sizes = torch.bincount(flat_experts, minlength=num_experts)
+    group_start = torch.cumsum(group_sizes, 0) - group_sizes
+    pos_sorted = (torch.arange(n, device=flat_experts.device)
+                  - group_start[flat_experts[order]])
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = pos_sorted
+    return pos, group_sizes
+
+
+def _expert_ffn(params, x_buf):
+    """x_buf [E, cap, d] -> [E, cap, d]: each expert's SwiGLU."""
+    h = F.silu(torch.bmm(x_buf, params["w_gate"])) \
+        * torch.bmm(x_buf, params["w_up"])
+    return torch.bmm(h, params["w_down"])
+
+
+def _router_logits(params, x):
+    """x [T,d] against the router cast to x's dtype, summed in f32: the
+    products of two bf16 numbers are exact in f32, so this is the JAX
+    package's ``preferred_element_type=f32`` product."""
+    return x.to(torch.float32) @ params["router"].to(x.dtype).to(
+        torch.float32)
+
+
+def _moe_local(params, cfg: ModelConfig, x, capacity):
+    """Dispatch and expert compute over all experts for tokens x [T,d].
+    Returns (y [T,d], me [E], ce [E], fits [T,k] bool: the assignments
+    that found a slot)."""
+    T, d = x.shape
+    k, E = cfg.experts_per_token, cfg.num_experts
+    weights, experts, probs = top_k_routing(_router_logits(params, x), k)
+
+    flat_e = experts.reshape(-1)                               # [N = T k]
+    pos, _ = _positions_in_expert(flat_e, E)
+    fits = pos < capacity
+    # the source token of each (expert, slot); an assignment past its
+    # expert's capacity writes the scratch slot n_slots, which is cut off
+    n_slots = E * capacity
+    slot_flat = torch.where(fits, flat_e * capacity + pos, n_slots)
+    token_idx = torch.arange(T * k, device=x.device) // k
+    src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
+    src[slot_flat] = token_idx
+    x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)
+    x_buf = x_pad[src[:n_slots]].reshape(E, capacity, d)
+
+    y_flat = _expert_ffn(params, x_buf).reshape(n_slots, d)
+
+    # combine: one gather a top-k slot, added in slot order in x's dtype
+    slot_2d = slot_flat.reshape(T, k)
+    w_2d = (weights.reshape(-1) * fits.to(torch.float32)).reshape(
+        T, k).to(x.dtype)
+    y = x.new_zeros((T, d))
+    for j in range(k):
+        idx = torch.clamp(slot_2d[:, j], 0, n_slots - 1)
+        y = y + y_flat[idx] * w_2d[:, j, None]
+
+    # switch-style load-balance statistics over all experts
+    me = probs.mean(dim=0)
+    ce = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * k)
+    return y, me, ce, fits.reshape(T, k)
+
+
+def moe_ffn(params, cfg: ModelConfig, x):
+    """x [B,S,d] -> (y [B,S,d], aux loss f32 scalar)."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    capacity = _capacity(B * S, k, E, cfg.capacity_factor)
+    y, me, ce, _ = _moe_local(params, cfg, x.reshape(B * S, d), capacity)
+    aux = cfg.router_aux_loss * E * torch.sum(me * ce)
+    y = y.reshape(B, S, d)
+    if "shared" in params:
+        y = y + swiglu(params["shared"], x)
+    if "dense_residual" in params:
+        y = y + swiglu(params["dense_residual"], x)
+    return y, aux

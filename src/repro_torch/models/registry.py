@@ -1,6 +1,5 @@
 """Model registry: a uniform functional handle over the paper's vision
-models (the CIFAR-10 CNN, ResNet18-GN) and the LM architectures ported
-so far."""
+models (the CIFAR-10 CNN, ResNet18-GN) and the ten LM architectures."""
 from __future__ import annotations
 
 import dataclasses
@@ -50,7 +49,6 @@ def _cnn_model(cfg: CNNConfig) -> Model:
 
 
 def _lm_model(cfg: ModelConfig) -> Model:
-    T.check_ported(cfg)
     return Model(
         cfg=cfg,
         init=lambda gen: T.init(gen, cfg),       # on the generator's device
@@ -66,7 +64,7 @@ def _lm_model(cfg: ModelConfig) -> Model:
 
 def build_model(arch_or_cfg) -> Model:
     """A CNNConfig (``kind`` ``"paper_cnn"`` or ``"resnet18_gn"``), a
-    ModelConfig, or the name of a ported LM architecture -> Model."""
+    ModelConfig, or the name of an LM architecture -> Model."""
     if isinstance(arch_or_cfg, CNNConfig):
         if arch_or_cfg.kind not in C.KINDS:
             raise ValueError(f"unknown CNN kind {arch_or_cfg.kind!r}; "

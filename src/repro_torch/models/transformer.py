@@ -1,14 +1,19 @@
-"""Decoder of the LM model zoo: RG-LRU hybrids and RWKV6 so far.
+"""Decoder of the LM model zoo: every family of the JAX package (dense
+GQA, MoE, RG-LRU hybrid, RWKV6, the VLM's cross-attention decoder and the
+audio-token decoder).
 
 As in the JAX package, the parameters of the ``num_full_periods`` pattern
 periods are stacked on a leading [nper] axis (``params["blocks"]``) and
 the remainder layers are ``rem{i}``; here the periods run in a Python
 loop over views of the stacked leaves.  Prefill and training run the
-hand-written kernels through ``kernels.ops`` (local attention, the
-RG-LRU scan, the WKV recurrence; on the card attention and the RG-LRU
-scan also run their backward kernels, and the WKV recurrence takes no
-gradient yet); decode is plain torch.  Cross attention, MoE FFNs and
-the audio / VLM front ends are not ported yet and raise.
+hand-written kernels through ``kernels.ops`` (self and cross attention,
+the RG-LRU scan, the WKV recurrence; on the card each also runs its
+backward kernel); decode is plain torch.  The audio family embeds
+``frame_embeddings`` [B,S,encoder_dim] through ``embed_proj`` and adds
+sinusoidal positions; the VLM's cross layers attend over
+``encoder_embeddings`` [B,num_encoder_tokens,encoder_dim] (through
+``enc_proj`` when encoder_dim != d_model), whose keys and values the
+prefill caches for decode.
 
 Public API (functional):
     init(gen, cfg)                                  -> params
@@ -31,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
                                       RECURRENT, RWKV, ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
 
@@ -43,23 +49,6 @@ def _pdtype(cfg: ModelConfig):
     return getattr(torch, cfg.param_dtype)
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the JAX decoder the port does not have yet."""
-    missing = []
-    if CROSS_ATTN in cfg.block_pattern:
-        missing.append("cross attention")
-    if cfg.num_experts:
-        missing.append("MoE FFNs")
-    if cfg.family in ("audio", "vlm"):
-        missing.append(f"the {cfg.family} front end")
-    if cfg.qkv_bias or cfg.qk_norm or cfg.pos_embedding == "sinusoidal":
-        missing.append("QKV bias, QK norm and sinusoidal positions")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
-            f"yet (see ROADMAP.md, Queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # nested-dict helpers (the parameter and cache trees)
 
@@ -70,8 +59,18 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def _stack(trees):
-    return _map(lambda *xs: torch.stack(xs), *trees)
+def _put(stack, i, tree, n):
+    """Write ``tree`` at index i of the stacked tree ``stack`` [n, ...]
+    (allocated at the first write; pass None) and return it.  A stack
+    built so holds one tree beside it, where ``torch.stack`` of a list
+    holds every tree and the stack: a 54 GB model would need twice that.
+    A stack of one is a view of its tree."""
+    if n == 1:
+        return _map(lambda x: x.unsqueeze(0), tree)
+    if stack is None:
+        stack = _map(lambda x: x.new_empty((n,) + x.shape), tree)
+    _map(lambda s, x: s[i].copy_(x), stack, tree)
+    return stack
 
 
 def _index(tree, i):
@@ -90,29 +89,55 @@ def _unbind(tree, n):
 # init
 
 
-def init_layer(gen, cfg: ModelConfig, kind: str):
+def init_layer(gen, cfg: ModelConfig, kind: str, out=None):
+    """One layer's weights; with ``out`` (a tree of the same leaves, a
+    period's slice of the stack) written into it and returned: the
+    projections and the FFN, MoE experts included, are drawn straight
+    into their leaves, the rest (norms, biases, gates; the RWKV and
+    recurrent blocks, at most a few hundred MB) drawn and copied."""
     dt = _pdtype(cfg)
     d = cfg.d_model
     dev = gen.device
+    o = out or {}
     if kind == RWKV:
-        return {
+        p = {
             "ln1": W.layer_norm_init(d, dt, dev),
             "tm": W.time_mix_init(gen, cfg, dt),
             "ln2": W.layer_norm_init(d, dt, dev),
             "cm": W.channel_mix_init(gen, cfg, dt),
         }
+        return _into(out, p)
     p = {"norm1": L.rms_norm_init(d, dt, dev),
          "norm2": L.rms_norm_init(d, dt, dev)}
     if kind == RECURRENT:
         p["rec"] = R.recurrent_block_init(gen, cfg, dt)
     else:
-        p["attn"] = L.attention_params_init(gen, cfg, dt)
-    p["ffn"] = L.swiglu_init(gen, d, cfg.d_ff, dt)
-    return p
+        p["attn"] = L.attention_params_init(gen, cfg, dt,
+                                            cross=(kind == CROSS_ATTN),
+                                            out=o.get("attn"))
+    p["ffn"] = (M.moe_params_init(gen, cfg, dt, out=o.get("ffn"))
+                if cfg.num_experts and kind != RECURRENT
+                else L.swiglu_init(gen, d, cfg.d_ff, dt, out=o.get("ffn")))
+    return _into(out, p)
 
 
-def init_period(gen, cfg: ModelConfig):
-    return {f"layer{i}": init_layer(gen, cfg, kind)
+def _into(out, tree):
+    """``tree`` written into ``out`` (a tree of the same leaves; a leaf
+    drawn in place is ``out``'s own and is not copied) and returned;
+    ``tree`` itself without ``out``."""
+    if out is None:
+        return tree
+
+    def put(o, x):
+        if x is not o:
+            o.copy_(x)
+        return o
+    return _map(put, out, tree)
+
+
+def init_period(gen, cfg: ModelConfig, out=None):
+    o = out or {}
+    return {f"layer{i}": init_layer(gen, cfg, kind, o.get(f"layer{i}"))
             for i, kind in enumerate(cfg.block_pattern)}
 
 
@@ -120,15 +145,34 @@ def init(gen: torch.Generator, cfg: ModelConfig):
     """Random weights drawn from ``gen`` on its device, in
     ``cfg.param_dtype`` (the JAX package's structure and shapes; its
     threefry values cannot be matched, so parity runs convert the JAX
-    package's weights instead)."""
-    check_ported(cfg)
+    package's weights instead).  The periods' stack is allocated first,
+    from the shapes of a period drawn under ``FakeTensorMode`` (no memory,
+    no numbers drawn), and each period is drawn into its slice: the init
+    holds the stack and one layer's small leaves, never a second
+    period."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     dt = _pdtype(cfg)
     dev = gen.device
-    params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
-                                    dtype=dt)}
-    if cfg.num_full_periods:
-        params["blocks"] = _stack([init_period(gen, cfg)
-                                   for _ in range(cfg.num_full_periods)])
+    params = {}
+    if cfg.family == "audio":
+        params["embed_proj"] = L.dense_init(
+            gen, (cfg.encoder_dim, cfg.d_model), dtype=dt)
+    else:
+        params["embed"] = L.embed_init(gen, (cfg.vocab_size, cfg.d_model),
+                                       dtype=dt)
+    if cfg.family == "vlm" and cfg.encoder_dim != cfg.d_model:
+        params["enc_proj"] = L.dense_init(
+            gen, (cfg.encoder_dim, cfg.d_model), dtype=dt)
+    n = cfg.num_full_periods
+    if n:
+        with FakeTensorMode():
+            period = init_period(gen, cfg)
+        blocks = _map(lambda x: torch.empty((n,) + tuple(x.shape),
+                                            dtype=x.dtype, device=dev),
+                      period)
+        for i in range(n):
+            init_period(gen, cfg, out=_index(blocks, i))
+        params["blocks"] = blocks
     for i in range(cfg.num_remainder_layers):
         params[f"rem{i}"] = init_layer(gen, cfg, cfg.block_pattern[i])
     params["final_norm"] = (W.layer_norm_init(cfg.d_model, dt, dev)
@@ -158,6 +202,10 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                                       device=device),
                 "wkv": torch.zeros((batch, H, rhd, rhd), dtype=torch.float32,
                                    device=device)}
+    if kind == CROSS_ATTN:
+        shape = (batch, cfg.num_encoder_tokens, KV, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
     if kind == GLOBAL_ATTN:
         n = cache_len
     elif kind == LOCAL_ATTN:
@@ -173,15 +221,13 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     """Decode cache for the whole model (stacked over periods)."""
-    check_ported(cfg)
     cache = {}
     nper = cfg.num_full_periods
-    if nper:
-        cache["blocks"] = _stack([
-            {f"layer{i}": init_layer_state(cfg, kind, batch, cache_len,
-                                           device)
-             for i, kind in enumerate(cfg.block_pattern)}
-            for _ in range(nper)])
+    for pi in range(nper):
+        cache["blocks"] = _put(cache.get("blocks"), pi, {
+            f"layer{i}": init_layer_state(cfg, kind, batch, cache_len,
+                                          device)
+            for i, kind in enumerate(cfg.block_pattern)}, nper)
     for i in range(cfg.num_remainder_layers):
         cache[f"rem{i}"] = init_layer_state(cfg, cfg.block_pattern[i],
                                             batch, cache_len, device)
@@ -193,10 +239,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
 # layer application
 
 
-def apply_layer(p, cfg: ModelConfig, kind: str, x, *, q_pos=None,
+def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
                 state=None, decode=False, collect_cache=False,
                 cache_len: int = 0):
-    """Returns (x, aux_loss, new_state)."""
+    """Returns (x, aux_loss, new_state); ``enc`` [B,T,d] are the encoder
+    states a cross layer attends over in prefill."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = state
     B = x.shape[0]
@@ -235,12 +282,19 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, q_pos=None,
         x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x), act=L.gelu)
         return x, aux, (s if (collect_cache or decode) else state)
 
-    if kind not in (GLOBAL_ATTN, LOCAL_ATTN):
-        raise NotImplementedError(f"layer kind {kind!r} is not ported")
     h = L.rms_norm(p["norm1"], x)
     window = cfg.window_size if kind == LOCAL_ATTN else 0
     theta = (cfg.rope_theta_local if kind == LOCAL_ATTN else cfg.rope_theta)
-    if decode:
+    if kind == CROSS_ATTN:
+        if decode:
+            y, _, _ = L.multihead_attention(p["attn"], cfg, h, causal=False,
+                                            cache=state, cache_fixed_kv=True)
+        else:
+            y, _, (k, v) = L.multihead_attention(p["attn"], cfg, h,
+                                                 kv_x=enc, causal=False)
+            if collect_cache:
+                new_state = {"k": k.contiguous(), "v": v.contiguous()}
+    elif decode:
         y, new_state, _ = L.multihead_attention(
             p["attn"], cfg, h, q_pos=q_pos, causal=True, window=window,
             rope_theta=theta, cache=state)
@@ -251,8 +305,12 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, q_pos=None,
         if collect_cache:
             new_state = _prefill_cache(cfg, kind, kv, q_pos, cache_len)
     x = x + y
-    x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x))
-    return x, aux, new_state
+    h = L.rms_norm(p["norm2"], x)
+    if cfg.num_experts:
+        y, aux = M.moe_ffn(p["ffn"], cfg, h)
+    else:
+        y = L.swiglu(p["ffn"], h)
+    return x + y, aux, new_state
 
 
 def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
@@ -284,13 +342,35 @@ def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
 
 
 def _embed(params, cfg: ModelConfig, batch):
+    """Token embeddings (the audio family: frame_embeddings @ embed_proj)
+    times sqrt(d_model), plus sinusoidal positions where the config has
+    them, at batch['positions'] (default 0..S-1)."""
     # F.embedding: its backward on CUDA sums a row's gradients in a fixed
     # order (indexing's scatter-add uses atomics), so a train step repeats
     # bit for bit
     dt = _dtype(cfg)
-    x = F.embedding(batch["tokens"], params["embed"]).to(dt)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
+    if cfg.family == "audio":
+        x = batch["frame_embeddings"].to(dt) @ params["embed_proj"]
+    else:
+        x = F.embedding(batch["tokens"], params["embed"]).to(dt)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
         device=x.device, dtype=dt)
+    if cfg.pos_embedding == "sinusoidal":
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = x + L.sinusoidal_pos(pos, cfg.d_model).to(dt)
+    return x
+
+
+def _encoder_states(params, cfg: ModelConfig, batch):
+    """The VLM's encoder states [B,T,d] (None for other families)."""
+    if cfg.family != "vlm":
+        return None
+    enc = batch["encoder_embeddings"].to(_dtype(cfg))
+    if "enc_proj" in params:
+        enc = enc @ params["enc_proj"]
+    return enc
 
 
 def _head(params, cfg: ModelConfig, x):
@@ -307,20 +387,23 @@ def _head(params, cfg: ModelConfig, x):
 
 def forward_hidden(params, cfg: ModelConfig, batch,
                    collect_cache: bool = False, cache_len: int = 0):
-    """The trunk: every layer over batch['tokens'] [B,S].  Returns (final
+    """The trunk: every layer over batch['tokens'] [B,S] (the audio
+    family: batch['frame_embeddings']; the VLM also reads
+    batch['encoder_embeddings']).  Returns (final
     hidden [B,S,d] before the head, aux, cache-or-None); with
     ``collect_cache`` the cache holds ``cache_len`` positions for the
     decode that follows.  With ``cfg.remat``, each layer runs under
     ``torch.utils.checkpoint`` when a gradient is being recorded (as the
     JAX package's ``jax.checkpoint``), so the backward recomputes it
     and holds one layer's transients at a time."""
-    check_ported(cfg)
     x = _embed(params, cfg, batch)
+    enc = _encoder_states(params, cfg, batch)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    kw = dict(q_pos=q_pos, collect_cache=collect_cache, cache_len=cache_len)
+    kw = dict(enc=enc, q_pos=q_pos, collect_cache=collect_cache,
+              cache_len=cache_len)
 
     def run(p, kind, x, aux):
         if remat:
@@ -331,19 +414,17 @@ def forward_hidden(params, cfg: ModelConfig, batch,
         return x, aux + a, st
 
     cache = {}
-    states = []
     # one unbind of each stacked leaf: its backward stacks the periods'
     # gradients once (a view per period would add a zero-filled copy of
     # the whole stack per period)
-    periods = (_unbind(params["blocks"], cfg.num_full_periods)
-               if cfg.num_full_periods else [])
-    for pparams in periods:
+    nper = cfg.num_full_periods
+    periods = _unbind(params["blocks"], nper) if nper else []
+    for pi, pparams in enumerate(periods):
         st = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, aux, st[f"layer{i}"] = run(pparams[f"layer{i}"], kind, x, aux)
-        states.append(st)
-    if collect_cache and states:
-        cache["blocks"] = _stack(states)
+        if collect_cache:
+            cache["blocks"] = _put(cache.get("blocks"), pi, st, nper)
     for i in range(cfg.num_remainder_layers):
         x, aux, st = run(params[f"rem{i}"], cfg.block_pattern[i], x, aux)
         if collect_cache:
@@ -417,11 +498,14 @@ def _chunked_ce(params, cfg: ModelConfig, x, targets, mask,
 
 
 def serve_step(params, cfg: ModelConfig, cache, batch):
-    """One decode step: batch['tokens'] [B,1].  Returns (logits [B,1,V],
-    new cache); the cache passed in is left as it was."""
-    x = _embed(params, cfg, batch)
-    B = x.shape[0]
+    """One decode step: batch['tokens'] [B,1] (the audio family:
+    batch['frame_embeddings'] [B,1,encoder_dim], its sinusoidal position
+    ``cache['pos']``; cross layers read their cached encoder keys and
+    values).  Returns (logits [B,1,V], new cache); the cache passed in is
+    left as it was."""
     pos = cache["pos"]
+    x = _embed(params, cfg, {**batch, "positions": pos.reshape(1, 1)})
+    B = x.shape[0]
     q_pos = pos.reshape(1, 1).expand(B, 1)
 
     def run(p, kind, x, state):
@@ -430,17 +514,15 @@ def serve_step(params, cfg: ModelConfig, cache, batch):
         return x, st
 
     new_cache = {}
-    states = []
-    for pi in range(cfg.num_full_periods):
+    nper = cfg.num_full_periods
+    for pi in range(nper):
         pparams = _index(params["blocks"], pi)
         pstate = _index(cache["blocks"], pi)
         st = {}
         for i, kind in enumerate(cfg.block_pattern):
             x, st[f"layer{i}"] = run(pparams[f"layer{i}"], kind, x,
                                      pstate[f"layer{i}"])
-        states.append(st)
-    if states:
-        new_cache["blocks"] = _stack(states)
+        new_cache["blocks"] = _put(new_cache.get("blocks"), pi, st, nper)
     for i in range(cfg.num_remainder_layers):
         x, new_cache[f"rem{i}"] = run(params[f"rem{i}"],
                                       cfg.block_pattern[i], x,

@@ -1,10 +1,10 @@
 """Serving entry point of the port: prefill a batch of prompts, then
 decode through the KV cache and the recurrent state, a token a step.
 
-  PYTHONPATH=src python -m repro_torch.serve --arch recurrentgemma-2b \\
+  PYTHONPATH=src python -m repro_torch.serve --arch qwen2-7b \\
       --batch 4 --prompt-len 3072 --gen 32
   PYTHONPATH=src python -m repro_torch.serve --device cpu --reduced \\
-      --arch rwkv6-3b
+      --arch llama-3.2-vision-11b
 
 The counterpart of ``examples/serve_lm.py``.  Weights and prompts are
 random, drawn from ``--seed`` by a ``torch.Generator`` on the device.  By
@@ -14,7 +14,10 @@ the config's dtype) on the GPU; ``--reduced`` serves the config's
 (``fl.distributed.make_prefill_step``: the trunk through the hand-written
 kernels, the head on the last position only) and decode
 (``make_serve_step``, plain torch) are the reference's serving steps.
-``--temperature 0`` is greedy decoding.
+``--temperature 0`` is greedy decoding.  The VLM's prompts come with
+``num_encoder_tokens`` encoder embeddings (the stub vision encoder's
+output, drawn from the seed); an audio model refuses to decode, as the
+reference does: its decode steps need frame embeddings, not tokens.
 """
 from __future__ import annotations
 
@@ -46,12 +49,16 @@ def _sync(device):
 
 
 def generate(model, params, prompt, gen_len: int, *, temperature=0.0,
-             generator=None):
-    """Prefill ``prompt`` [B, P] and decode ``gen_len`` tokens.
+             generator=None, extra=None):
+    """Prefill ``prompt`` [B, P] (with ``extra``, more prefill inputs:
+    the VLM's ``encoder_embeddings``) and decode ``gen_len`` tokens.
 
     Returns (tokens [B, gen_len], stats) where stats holds the prefill
     time, the decode rate and the kernel launches of each phase (from
     ``kernels.common.LAUNCHES``)."""
+    if model.cfg.family == "audio":
+        raise ValueError(f"{model.cfg.name}: audio decode needs frame "
+                         f"embeddings; serve a token model")
     B, P = prompt.shape
     prefill_step = make_prefill_step(model.cfg, cache_len=P + gen_len + 8)
     serve_step = make_serve_step(model.cfg)
@@ -59,7 +66,7 @@ def generate(model, params, prompt, gen_len: int, *, temperature=0.0,
     launches = [collections.Counter(common.LAUNCHES)]
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": prompt})
+    logits, cache = prefill_step(params, {"tokens": prompt, **(extra or {})})
     tok = sample(logits[:, -1], temperature, generator)
     _sync(dev)
     t1 = time.perf_counter()
@@ -85,8 +92,7 @@ def generate(model, params, prompt, gen_len: int, *, temperature=0.0,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="recurrentgemma-2b",
-                    choices=list_archs())
+    ap.add_argument("--arch", default="qwen2-7b", choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -101,14 +107,23 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "audio":
+        raise SystemExit("audio decode needs frame embeddings; use --arch "
+                         "with a token model")
     dev = resolve_device(args.device)
     model = build_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    extra = None
+    if cfg.family == "vlm":
+        extra = {"encoder_embeddings": torch.randn(
+            (args.batch, cfg.num_encoder_tokens, cfg.encoder_dim),
+            generator=gen, device=dev)}
     tokens, stats = generate(model, params, prompt, args.gen,
-                             temperature=args.temperature, generator=gen)
+                             temperature=args.temperature, generator=gen,
+                             extra=extra)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")
     print(f"{cfg.name} on {where}: prefill {args.batch}x{args.prompt_len} "

@@ -84,6 +84,10 @@ def test_entry_points_raise_without_gpu(no_gpu):
     for entry in (train.main, federated_lm_silos.main):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             entry(["--arch", "rwkv6-3b", "--reduced"])
+    # the default architecture, qwen2-7b, as the reference's entry points
+    for entry in (serve_main, train.main, federated_lm_silos.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry(["--reduced"])
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

@@ -321,6 +321,45 @@ def test_attention_kernel_bf16_on_card(cuda, B, H, KV, S, T, hd, causal,
                                atol=BF16_ATTN_TOL[0], rtol=BF16_ATTN_TOL[1])
 
 
+# the LM zoo's prefill shapes, cut in batch and heads: hd 128 with GQA
+# groups of 2 (gemma3-27b), 4 (llama-3.2-vision-11b), 7 (qwen2-7b, yi-34b,
+# arctic-480b) and 16 (qwen3-moe-235b-a22b); gemma3's window of 1024 at
+# its 3072-token prompt; llama-vision's cross attention, 3072 queries over
+# 1601 encoder keys (off the 64-key tile), non-causal; musicgen-large's
+# hd 64 with one query head a key head.  B, H, KV, S, T, hd, causal,
+# window.
+ZOO_ATTN_CASES = [(1, 4, 2, 300, 300, 128, True, 0),
+                  (1, 8, 2, 300, 300, 128, True, 0),
+                  (1, 14, 2, 257, 257, 128, True, 0),
+                  (1, 16, 1, 300, 300, 128, True, 0),
+                  (1, 4, 2, 3072, 3072, 128, True, 1024),
+                  (1, 4, 1, 3072, 1601, 128, False, 0),
+                  (2, 4, 4, 300, 300, 64, True, 0)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,window", ZOO_ATTN_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_kernel_zoo_shapes_on_card(cuda, B, H, KV, S, T, hd,
+                                            causal, window, dtype):
+    """Both routes at the zoo's shapes, read through the model's
+    [B, S, H, hd] strides: bf16 at ``BF16_ATTN_TOL``, f32 at atol 3e-5 /
+    rtol 1e-4."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    rng = np.random.default_rng(S + T + hd + H + window)
+    q = torch.as_tensor(randn(rng, (B, S, H, hd)), device=cuda)
+    kv = torch.as_tensor(randn(rng, (2, B, T, KV, hd)), device=cuda)
+    dt = getattr(torch, dtype)
+    args = [x.to(dt).transpose(1, 2) for x in (q, kv[0], kv[1])]
+    out = flash_attention_cuda(*args, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert out.dtype == dt and out.shape == (B, H, S, hd)
+    want = tref.attention_ref(*args, causal=causal, window=window)
+    tol = BF16_ATTN_TOL if dt == torch.bfloat16 else (3e-5, 1e-4)
+    torch.testing.assert_close(out.float(), want.float(), atol=tol[0],
+                               rtol=tol[1])
+
+
 @pytest.mark.requires_cuda
 def test_attention_kernel_bf16_refuses_unaligned_rows(cuda):
     from repro_torch.kernels.flash_attention import flash_attention_cuda

@@ -28,14 +28,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_zoo import nonzero
 
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.models import layers as JL
 from repro.models import rglru as JR
 from repro.models import rwkv6 as JW
 from repro.models import transformer as JT
 from repro_torch import convert
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as TL
 from repro_torch.models import rglru as TR
@@ -53,6 +55,11 @@ BF16_SPREAD = 1.5
 CASES = {"rg3": ("recurrentgemma-2b", {}),
          "rg5": ("recurrentgemma-2b", {"num_layers": 5}),
          "rwkv": ("rwkv6-3b", {})}
+# the bf16 check's cases: these and a dense, a QK-norm and an MoE config of
+# the zoo (its zero-initialised leaves made nonzero, test_torch_zoo.nonzero)
+BF16_CASES = {**CASES, "qwen2": ("qwen2-7b", {}),
+              "gemma3": ("gemma3-27b", {}),
+              "moonshot": ("moonshot-v1-16b-a3b", {})}
 
 
 def cfgs(case):
@@ -115,19 +122,22 @@ def j_to_t(jcfg):
 
 
 def test_configs_and_registry_match_reference():
-    for arch in ("recurrentgemma-2b", "rwkv6-3b"):
+    """All ten architectures, and their reduced() forms, equal the
+    reference's; the registry builds each."""
+    assert list_archs() == j_list_archs() and len(list_archs()) == 10
+    for arch in list_archs():
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             j_get_config(arch))
+        assert dataclasses.asdict(get_config(arch).reduced()) == \
+            dataclasses.asdict(j_get_config(arch).reduced())
+        assert build_model(arch).cfg is get_config(arch)
     for case in CASES:
         jcfg, tcfg = cfgs(case)
         assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
-    for arch in ("qwen2-7b", "gemma3-27b", "llama-3.2-vision-11b"):
-        j_get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(j_to_t(j_get_config("qwen3-moe-235b-a22b").reduced()))
-    assert build_model("rwkv6-3b").cfg is get_config("rwkv6-3b")
+    moe = j_to_t(j_get_config("qwen3-moe-235b-a22b").reduced())
+    assert build_model(moe).cfg == moe
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -373,7 +383,7 @@ def bf16_spread(got, want):
                      np.linalg.norm(got - want) / np.linalg.norm(want)])
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", list(BF16_CASES))
 def test_bf16_serving_error_within_the_references(case):
     """bf16 weights and activations, prefill of 20 tokens then 24
     teacher-forced serve_steps past the window: the port's logits lie no
@@ -381,12 +391,14 @@ def test_bf16_serving_error_within_the_references(case):
     weights) than BF16_SPREAD times the JAX package's own bf16 logits do,
     in max abs error over scale and in relative L2, worst over the prefill
     and every step."""
-    arch, kw = CASES[case]
+    arch, kw = BF16_CASES[case]
     bf = {"dtype": "bfloat16", "param_dtype": "bfloat16"}
     jcfg, tcfg = (get(arch).reduced(**kw, **bf)
                   for get in (j_get_config, get_config))
     fcfg = j_get_config(arch).reduced(**kw)
     jp = JT.init(jax.random.key(0), jcfg)
+    if case not in CASES:
+        jp = nonzero(jp)
     fp = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
     tp = convert.lm_params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     assert tp["embed"].dtype == torch.bfloat16
