@@ -132,6 +132,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      ``repro_torch.obs.profile_rounds``; peak memory logged.  Before each:
      the reduced f32 step on the card against the same step on the CPU
      (loss within 1e-5 relative, params within 1e-4 in L2 a leaf);
+ 8b. trains the rest of the LM zoo the same way (``phase_lm_zoo_train``,
+     through the same ``train_arch``), each model at published width
+     with its zero-initialised leaves drawn nonzero as in phase 7b and
+     the VLM's encoder embeddings N(0, 1) in the card / CPU check:
+     qwen2-7b, moonshot-v1-16b-a3b (cut to 24 of 48 layers) and
+     llama-3.2-vision-11b with phase 8's 3 rounds, twin, plain step and
+     profiled step; gemma3-27b and yi-34b (24 layers), musicgen-large
+     (frame embeddings), qwen3-moe-235b-a22b (5 of 94) and arctic-480b
+     (1 of 35) with one round and the twin (``ZOO_TRAIN``).  A round
+     launches K4 twice and K4-bwd once an attention layer, self and
+     cross, and nothing else (``train_step_launches``, worked out from
+     each config's layers); the MoE models' twins hold the fixed-order
+     MoE backward; each round's model-FLOP share of the bf16 peak
+     (``repro_torch.roofline.model_flops``) is logged, and the peak must
+     stay under ``ZOO_TRAIN_PEAK_GIB``.  Then K4-bwd against its plain
+     version (bf16 and f32, two calls bitwise equal) at every shape those
+     steps launched it at and at gemma3-27b's local layers at S = T =
+     2048 (window 1024);
   9. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes, the backward kernels at the
      train step's (K5-bwd from the forward's chunk states, no library
@@ -143,6 +161,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      and 8-cell shapes, rows ``persample_gradnorm@R`` and ``@Rx8``, and
      attention at the zoo's prefill shapes, rows ``attention@<arch>/<kind>``
      for qwen2-7b, gemma3-27b's local and global layers and
+     llama-3.2-vision-11b's cross layers, and attention's backward at the
+     zoo's train shapes, rows ``attention_bwd@<arch>/<kind>`` for
+     qwen2-7b (GQA group 7), qwen3-moe-235b-a22b (group 16) and
      llama-3.2-vision-11b's cross layers)
      beside its plain version, one
      library call where one computes the same function (``cdist`` for
@@ -192,10 +213,6 @@ SIGMA_ATOL = SIGMA_RTOL = 1e-3  # K3 vs its plain version (f32)
 # own sigma is small carries ~6e-8 * ||h|| of it (up to 6e-3 relative).
 SIGMA_F64_RTOL = 2e-6
 SIGMA_F64_FLOOR = 1e-6
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12         # H100 SXM f32, outside the tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 TPU_KERNELS = {
     "wemd_add": "src/repro/kernels/wemd_swap.py:115",
     "wemd_swap": "src/repro/kernels/wemd_swap.py:74",
@@ -409,15 +426,17 @@ def visible_pairs(S, T, causal, window):
 def bound(name, shapes, itemsize=4):
     """(bound_ms, bound_by): bytes each input read once and each output
     written once over HBM, operations over the peak rate of their type
-    (the f32 rate, and bf16 tensor cores for bf16 attention)."""
-    rate = F32_FLOPS_PER_S
+    (the f32 rate, and bf16 tensor cores for bf16 attention), at the
+    H100 SXM's peaks from ``repro_torch.roofline``."""
+    from repro_torch.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS, TF32_FLOPS
+    rate = F32_FLOPS
     if name == "attention_bwd":
         # reads q, k, v, dO, writes dq, dk, dv; s, dP, dq, dk and dv take
         # 2 hd FLOPs each a visible pair
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
         nbytes = itemsize * (3 * B * H * S * hd + 4 * B * KV * T * hd)
         ops = 10 * hd * B * H * visible_pairs(S, T, causal, window)
-        rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+        rate = PEAK_FLOPS if itemsize == 2 else F32_FLOPS
     elif name == "rglru_bwd":
         # reads a, h, dh [B,T,D] and h0, dh_T [B,D], writes da, db and dh0;
         # an FMA for g and a product for da an element
@@ -434,14 +453,13 @@ def bound(name, shapes, itemsize=4):
         nbytes = 4 * (9 * B * T * H * hd + 2 * H * hd
                       + (B * nch + 2 * B) * H * hd * hd)
         f32_ops, tc_ops = (B * H * nch * x for x in wkv_bwd_chunk_ops(hd))
-        ops, rate = max((f32_ops, F32_FLOPS_PER_S),
-                        (tc_ops, TF32_FLOPS_PER_S),
+        ops, rate = max((f32_ops, F32_FLOPS), (tc_ops, TF32_FLOPS),
                         key=lambda x: x[0] / x[1])
     elif name == "attention":
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
         nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
         ops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
-        rate = BF16_FLOPS_PER_S if itemsize == 2 else F32_FLOPS_PER_S
+        rate = PEAK_FLOPS if itemsize == 2 else F32_FLOPS
     elif name == "wkv":
         (B, T, H, hd), = shapes
         nbytes = 4 * (5 * B * T * H * hd + H * hd + 2 * B * H * hd * hd)
@@ -465,7 +483,7 @@ def bound(name, shapes, itemsize=4):
         # the Eq. 10 reduction (the kernel's second pass over the rows,
         # which keeps f32's digits, is not counted)
         ops = V * (8 * B * C + 2 * B * d + 2 * B * d * C + 2 * d * C)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    t_bytes, t_ops = nbytes / HBM_BW, ops / rate
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1842,27 +1860,34 @@ def zoo_leaves(torch, params, gen):
 
 class DropCount:
     """While entered, counts the MoE assignments dropped at an expert's
-    capacity and all assignments (``moe._moe_local`` wrapped; 0-d tensors
-    summed on the card, read once at the end)."""
+    capacity and all assignments of ``cfg``'s layers: each call of
+    ``moe.top_k_routing`` (wrapped) routes T tokens, and the assignments
+    whose arrival rank within their expert (``moe._positions_in_expert``)
+    reaches ``moe._capacity`` are the dropped ones (0-d tensors summed on
+    the card, read once at the end)."""
 
-    def __init__(self, torch):
-        self.torch = torch
+    def __init__(self, torch, cfg):
+        self.torch, self.cfg = torch, cfg
 
     def __enter__(self):
         from repro_torch.models import moe
-        self.moe, self.orig = moe, moe._moe_local
+        self.moe, self.orig = moe, moe.top_k_routing
         self.dropped, self.total = [], 0
+        E, factor = self.cfg.num_experts, self.cfg.capacity_factor
 
-        def counted(*args):
-            out = self.orig(*args)
-            self.dropped.append((~out[3]).sum())
-            self.total += out[3].numel()
+        def counted(logits, k):
+            out = self.orig(logits, k)
+            experts = out[1]
+            cap = moe._capacity(experts.shape[0], k, E, factor)
+            pos, _ = moe._positions_in_expert(experts.reshape(-1), E)
+            self.dropped.append((pos >= cap).sum())
+            self.total += experts.numel()
             return out
-        moe._moe_local = counted
+        moe.top_k_routing = counted
         return self
 
     def __exit__(self, *exc):
-        self.moe._moe_local = self.orig
+        self.moe.top_k_routing = self.orig
 
     def read(self):
         return (int(self.torch.stack(self.dropped).sum())
@@ -2013,7 +2038,7 @@ def zoo_checks(torch, model, params, batch, P, C, rows):
     from repro_torch.models import transformer as T
     cfg = model.cfg
     prefill = make_prefill_step(cfg, cache_len=P + 8)
-    with DropCount(torch) as drops, torch.no_grad():
+    with DropCount(torch, cfg) as drops, torch.no_grad():
         last, cache = prefill(params, _upto(batch, P))
     del cache
     torch.cuda.synchronize()
@@ -2070,7 +2095,7 @@ def zoo_checks(torch, model, params, batch, P, C, rows):
         torch.cuda.synchronize()
         return torch.stack(dec, dim=1), (time.perf_counter() - t0) * 1e3
 
-    with DropCount(torch) as check_drops, RoutingLog() as routes, \
+    with DropCount(torch, cfg) as check_drops, RoutingLog() as routes, \
             torch.no_grad():
         x = T.forward_hidden(params, cfg, sub)[0]
         want = T._head(params, cfg, x[:, P:P + C])
@@ -2313,11 +2338,26 @@ def zoo_timing_cases():
 # not over it, so it takes the whole [B, S, V] f32 logits (1 GiB)
 TRAIN_ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
 TRAIN_SILOS, TRAIN_PER_SILO, TRAIN_SEQ, TRAIN_ROUNDS = 8, 2, 256, 3
+# phase 8b, the LM zoo's training in the same world: (arch, depth, full).
+# Each model at published width, at full depth where its step's peak stays
+# well under the card's 80 GB, else at the most whole pattern periods that
+# do: the step holds the params, their gradients (both bf16) and an f32
+# copy of the largest gradient leaf (the grad norm).  gemma3-27b, yi-34b
+# and moonshot-v1-16b-a3b at 24 layers (of 62, 60 and 48), qwen3-moe at 5
+# of 94 (5 GB of weights a layer), arctic-480b at 1 of 35 (its 128 experts
+# alone 27 GB a layer).  ``full``: 3 rounds, the twin, a plain step and a
+# profiled step; else one round and the twin
+ZOO_TRAIN = (("qwen2-7b", None, True), ("moonshot-v1-16b-a3b", 24, True),
+             ("llama-3.2-vision-11b", None, True), ("gemma3-27b", 24, False),
+             ("yi-34b", 24, False), ("musicgen-large", None, False),
+             ("qwen3-moe-235b-a22b", 5, False), ("arctic-480b", 1, False))
+ZOO_TRAIN_PEAK_GIB = 75.0       # a zoo train step's peak memory, at most
 # launches a train step: with remat every layer's forward runs again in
 # the backward, so the forward kernels launch twice (the WKV forward saves
 # its chunk states both times: the checkpoint drops the first pass's, the
 # recompute's feed K5-bwd), and each backward kernel once a layer (K4-bwd
-# is three launches, K5-bwd two, each counted once)
+# is three launches, K5-bwd two, each counted once).  The zoo's models
+# run no kernel but K4: ``train_step_launches``
 TRAIN_STEP_LAUNCHES = {
     "recurrentgemma-2b": {"attention": 16, "attention_bwd": 8, "rglru": 36,
                           "rglru_bwd": 18},
@@ -2333,21 +2373,61 @@ def _rel_l2(torch, got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
+def train_step_launches(cfg):
+    """The launches of one train step of ``cfg`` (at the depth it trains
+    at): ``TRAIN_STEP_LAUNCHES`` for phase 8's models; for the zoo's, K4
+    twice and K4-bwd once a layer that runs attention (global, local and
+    cross)."""
+    from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN
+    if cfg.name in TRAIN_STEP_LAUNCHES:
+        return TRAIN_STEP_LAUNCHES[cfg.name]
+    n = sum(cfg.layer_kind(i) in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN)
+            for i in range(cfg.num_layers))
+    return {"attention": 2 * n, "attention_bwd": n}
+
+
+def train_params(torch, cfg, gen):
+    """``cfg``'s params drawn from ``gen``; a zoo model's zero-initialised
+    leaves made nonzero (``zoo_leaves``: a closed cross gate would leave
+    its layer's attention without a gradient)."""
+    from repro_torch.models import transformer as T
+    params = T.init(gen, cfg)
+    if cfg.name.removesuffix("-reduced") not in TRAIN_ARCHS:
+        zoo_leaves(torch, params, gen)
+    return params
+
+
+def train_batch(torch, cfg, toks, seed):
+    """``launch.train.lm_batch``'s batch of token rows ``toks`` [B, S+1]
+    (the audio family's frame embeddings N(0, 1)); the VLM's encoder
+    embeddings N(0, 1) from ``seed`` in place of lm_batch's zeros, whose
+    keys and values would be zero."""
+    import numpy as np
+
+    from repro_torch.launch.train import lm_batch
+    rng = np.random.default_rng(seed)
+    batch = lm_batch(cfg, toks, rng)
+    if "encoder_embeddings" in batch:
+        batch["encoder_embeddings"] = torch.from_numpy(rng.standard_normal(
+            tuple(batch["encoder_embeddings"].shape),
+            dtype=np.float32)).to(toks.device)
+    return batch
+
+
 def train_card_vs_cpu(torch, dev, arch):
     """The reduced f32 step of ``arch`` on the card (its kernels and their
     backward kernels) against the same step on the CPU (the plain
     versions): the loss within 1e-5 relative, every new param within 1e-4
-    relative in L2."""
+    relative in L2 a leaf."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.fl.distributed import make_train_step
-    from repro_torch.models import transformer as T
     cfg = get_config(arch).reduced()
-    params = T.init(torch.Generator().manual_seed(1), cfg)
+    params = train_params(torch, cfg, torch.Generator().manual_seed(1))
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (4, 41)).astype(np.int32))
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    batch = train_batch(torch, cfg, toks, 1)
     step = make_train_step(cfg, eta=0.1)
     want, wm = step(params, batch)
     got, gm = step(_to(params, dev), {k: v.to(dev) for k, v in batch.items()})
@@ -2374,6 +2454,32 @@ def _paths(tree, prefix=""):
             yield from _paths(tree[k], f"{prefix}{k}/")
         else:
             yield prefix + k, tree[k]
+
+
+class HostParams:
+    """A pinned host buffer that holds one params tree at a time (the first
+    of two runs, while the second runs on the card), grown as a larger
+    tree comes: on an H100 host a pageable copy of qwen2-7b's 15.2 GB
+    took 6.76 s, a pinned one 0.36 s."""
+
+    def __init__(self, torch):
+        self.torch, self.buf = torch, None
+
+    def hold(self, tree):
+        """{path: pinned host copy} of ``tree``'s leaves."""
+        torch = self.torch
+        leaves = [(k, x, x.numel() * x.element_size()) for k, x
+                  in _paths(tree)]
+        need = sum(-(-n // 16) * 16 for _, _, n in leaves)
+        if self.buf is None or self.buf.numel() < need:
+            self.buf = None
+            self.buf = torch.empty(need, dtype=torch.uint8, pin_memory=True)
+        out, off = {}, 0
+        for k, x, n in leaves:
+            out[k] = self.buf[off:off + n].view(x.dtype).view(x.shape)
+            out[k].copy_(x)
+            off += -(-n // 16) * 16
+        return out
 
 
 class StepRounds:
@@ -2414,37 +2520,127 @@ def phase_lm_train(torch, dev, prof_ok):
     """FedCGD over LM silos on each of ``TRAIN_ARCHS`` (``train_arch``).
     Returns the runs' launches and kernel shapes, merged."""
     launches, shapes = {}, {}
+    host = HostParams(torch)
     for arch in TRAIN_ARCHS:
         t0 = time.perf_counter()
-        got, shp = train_arch(torch, dev, prof_ok, arch)
+        got, shp, _ = train_arch(torch, dev, prof_ok, host, arch)
         launches.update(got)
         shapes.update(shp)
         log(f"[LM training, {arch}] done in {time.perf_counter() - t0:.2f} s")
     return launches, shapes
 
 
-def train_arch(torch, dev, prof_ok, arch):
-    """``arch`` at full width and depth through
+def phase_lm_zoo_train(torch, dev, prof_ok):
+    """Phase 8b: FedCGD over LM silos on each of ``ZOO_TRAIN``
+    (``train_arch`` at its depth, full treatment or one round and the
+    twin), then K4-bwd held to its plain version at every shape those
+    steps launched it at and at gemma3-27b's local layers at S = T = 2048
+    (``zoo_attention_bwd_checks``).  Returns {arch: (launches, the
+    shapes of each kernel's last launch)}."""
+    out, bwd_shapes = {}, {}
+    host = HostParams(torch)
+    for arch, depth, full in ZOO_TRAIN:
+        t0 = time.perf_counter()
+        out[arch] = train_arch(torch, dev, prof_ok, host, arch, depth, full)
+        for shp in out[arch][2]:
+            bwd_shapes.setdefault(shp, []).append(arch)
+        log(f"[LM zoo training, {arch}] done in "
+            f"{time.perf_counter() - t0:.2f} s")
+    del host
+    from repro_torch.configs import get_config
+    g = get_config("gemma3-27b")
+    bwd_shapes[((2, g.num_heads, 2048, g.head_dim),
+                (2, g.num_kv_heads, 2048, g.head_dim),
+                (1, g.window_size))] = ["gemma3-27b at S = 2048"]
+    zoo_attention_bwd_checks(torch, dev, bwd_shapes)
+    return out
+
+
+def zoo_bwd_timing_case(arch, kind, trained):
+    """phase_timing's K4-bwd row at the shape ``arch``'s train step
+    launched it at for its layers of ``kind`` (``trained``: that model's
+    ``train_arch`` result), with the run's launches at that shape."""
+    shapes = trained[2]
+    (shp,) = [x for x in shapes if bool(x[2][0]) == (kind != "cross")]
+    return (f"attention_bwd@{arch}/{kind}", "attention_bwd", shp,
+            shapes[shp])
+
+
+def zoo_attention_bwd_checks(torch, dev, shapes):
+    """K4-bwd at each of ``shapes`` (shape -> the models that launch it
+    there) on seeded bf16 and f32 inputs against autograd of the plain
+    attention (``ref.attention_bwd_ref``), at ``BF16_ATTN_TOL`` and
+    ``F32_ATTN_TOL`` elementwise, a second call bitwise equal."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    for shp, archs in sorted(shapes.items()):
+        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        errs = []
+        for dtype, (atol, rtol) in ((torch.bfloat16, BF16_ATTN_TOL),
+                                    (torch.float32, F32_ATTN_TOL)):
+            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 86, dev)
+            do = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 87, dev)[0]
+            kw = dict(causal=bool(causal), window=window)
+            got = flash_attention_bwd_cuda(q, k, v, do, **kw)
+            again = flash_attention_bwd_cuda(q, k, v, do, **kw)
+            want = ref.attention_bwd_ref(q, k, v, do, **kw)
+            err = 0.0
+            for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+                e = (g.float() - w.float()).abs()
+                err = max(err, float(e.max()))
+                require(torch.equal(g, g2) and bool(
+                    (e <= atol + rtol * w.float().abs()).all()),
+                        f"attention_bwd {dtype} {name} at {shp} ({archs}): "
+                        f"max abs err {float(e.max()):.3g} over tolerance, "
+                        f"or two calls differ")
+            errs.append(err)
+            del q, k, v, do, got, again, want
+        log(f"attention_bwd at {shp} ({', '.join(archs)}): kernel vs plain, "
+            f"max abs err bf16 {errs[0]:.3g} (atol {BF16_ATTN_TOL[0]} + "
+            f"rtol {BF16_ATTN_TOL[1]}), f32 {errs[1]:.3g} (atol "
+            f"{F32_ATTN_TOL[0]} + rtol {F32_ATTN_TOL[1]}); two calls "
+            f"bitwise equal")
+    torch.cuda.empty_cache()
+
+
+def train_arch(torch, dev, prof_ok, host, arch, depth=None, full=True):
+    """``arch`` at full width (and ``depth`` layers, or its own) through
     ``launch.federated_lm_silos.run``: 3 rounds of one schedule-weighted
-    train step each, every round's loss and grad norm finite, its kernels
-    and their backward kernels launched ``TRAIN_STEP_LAUNCHES`` times a
-    round and nothing else; a second run on the same seed bitwise equal
-    (metrics, masks, params); then one plain ``make_train_step`` step,
-    and one profiled (``obs.profile_rounds``); first the card / CPU check
-    of the reduced step.  Returns the run's launches and kernel shapes."""
+    train step each (1 unless ``full``), every round's loss and grad norm
+    finite, its kernels and their backward kernels launched
+    ``train_step_launches`` times a round and nothing else; a second run
+    on the same seed bitwise equal (metrics, masks, params: the first
+    run's params wait on the host, in ``host``, a ``HostParams``, so one
+    model's params and gradients are on the card at a time); with ``full`` one plain
+    ``make_train_step`` step, and one profiled (``obs.profile_rounds``);
+    first the card / CPU check of the reduced step.  Logs each round's
+    share of the card's bf16 peak in model FLOPs (``roofline.model_flops``:
+    6 x active params x tokens) and the peak memory.  Returns the run's
+    launches, the shapes of each kernel's last launch and K4-bwd's
+    launches at each shape it was launched at."""
+    import collections
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.fl.distributed import make_train_step
     from repro_torch.kernels import common
     from repro_torch.launch import federated_lm_silos
-    from repro_torch.models import transformer as T
-    from repro_torch.obs import profile_rounds
+    from repro_torch.roofline import PEAK_FLOPS, InputShape, model_flops
     train_card_vs_cpu(torch, dev, arch)
     cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
     require(cfg.remat and cfg.param_dtype == "bfloat16",
             f"{cfg.name}: not the bf16 remat config")
+    per_round = train_step_launches(cfg)
+    rounds = TRAIN_ROUNDS if full else 1
     log(f"{cfg.name}: S x vocab = {TRAIN_SEQ * cfg.vocab_size}, "
         + ("over 2**24: the chunked CE" if TRAIN_SEQ * cfg.vocab_size
            > 1 << 24 else "not over 2**24: the whole f32 logits"))
+    tokens = TRAIN_SILOS * TRAIN_PER_SILO * TRAIN_SEQ
+    flops = model_flops(cfg, InputShape("round", TRAIN_SEQ,
+                                        TRAIN_SILOS * TRAIN_PER_SILO,
+                                        "train"), "train")
     torch.cuda.reset_peak_memory_stats()
 
     def run():
@@ -2453,66 +2649,94 @@ def train_arch(torch, dev, prof_ok, arch):
         def stamp(msg):                 # after float(loss): synchronised
             stamps.append(time.perf_counter())
             log(f"  {msg}")
-        params = T.init(torch.Generator(device=dev).manual_seed(0), cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        # each run from an empty cache: a twin that reused the first run's
+        # cached blocks found no free 13 GiB among 12 GiB of them (yi-34b)
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         common.reset_launches()
+        # the drawn params go straight into run(), which drops them after
+        # its first step: no third copy beside the step's params and
+        # gradients
         params, hist = federated_lm_silos.run(
-            cfg, rounds=TRAIN_ROUNDS, silos=TRAIN_SILOS,
+            cfg, rounds=rounds, silos=TRAIN_SILOS,
             per_silo_batch=TRAIN_PER_SILO, seq=TRAIN_SEQ, device=dev,
-            params=params, log=stamp, log_every=1)
+            params=train_params(torch, cfg, gen), log=stamp, log_every=1)
         launches = dict(common.LAUNCHES)
         ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
-        return params, hist, launches, dict(common.LAST_SHAPES), ms
+        return (params, hist, launches, dict(common.LAST_SHAPES),
+                collections.Counter(common.SHAPES["attention_bwd"]), ms)
 
-    params, hist, launches, shapes, ms = run()
-    want = {k: v * TRAIN_ROUNDS for k, v in TRAIN_STEP_LAUNCHES[arch].items()}
+    params, hist, launches, shapes, bwd_shapes, ms = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: v * rounds for k, v in per_round.items()}
     n_params = sum(x.numel() for _, x in _paths(params))
+    cut = (f", {depth} of {get_config(arch).num_layers} layers" if depth
+           else "")
     log(f"{cfg.name} FedCGD over {TRAIN_SILOS} silos x {TRAIN_PER_SILO} x "
-        f"{TRAIN_SEQ} tokens, {n_params / 1e9:.3f} B params (bf16, remat): "
-        f"rounds " + ", ".join(
+        f"{TRAIN_SEQ} tokens, {n_params / 1e9:.3f} B params (bf16, "
+        f"remat{cut}): rounds " + ", ".join(
             f"{m:.2f} ms (loss {float(h['metrics']['loss']):.4f}, grad norm "
             f"{float(h['metrics']['grad_norm']):.4f}, {h['scheduled']}/"
-            f"{TRAIN_SILOS} scheduled)" for m, h in zip(ms, hist))
-        + f"; launches {launches}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            f"{TRAIN_SILOS} scheduled; {flops / 1e12:.1f} TFLOP of model "
+            f"FLOPs, {100 * flops / (m / 1e3 * PEAK_FLOPS):.1f} % of the "
+            f"bf16 peak)" for m, h in zip(ms, hist))
+        + f"; {tokens / (min(ms) / 1e3):.0f} tokens/s at the fastest round"
+        f"; launches {launches}; peak memory {peak:.2f} GiB")
     require(launches == want, f"{cfg.name}: launches {launches}, want {want}")
     require(all(bool(torch.isfinite(h["metrics"][k]))
                 for h in hist for k in ("loss", "grad_norm")),
             f"{cfg.name}: a round's loss or grad norm is not finite")
-    twin, thist, _, _, tms = run()
-    same = all(torch.equal(a, b) for (_, a), (_, b)
-               in zip(_paths(params), _paths(twin)))
+    require(peak < ZOO_TRAIN_PEAK_GIB, f"{cfg.name}: peak memory {peak:.2f} "
+            f"GiB, past {ZOO_TRAIN_PEAK_GIB}")
+    t0 = time.perf_counter()
+    first = host.hold(params)
+    del params
+    t_host = time.perf_counter() - t0
+    params, thist, _, _, _, tms = run()
+    t0 = time.perf_counter()
+    same = all(torch.equal(first[k].to(dev), x) for k, x in _paths(params))
     same &= all(torch.equal(h["metrics"][k], g["metrics"][k])
                 and (h["mask"] == g["mask"]).all()
                 for h, g in zip(hist, thist) for k in h["metrics"])
+    del first
     log(f"{cfg.name} second run on the same seed: rounds "
         + ", ".join(f"{m:.2f} ms" for m in tms)
-        + f"; bitwise equal: {same}; peak memory "
+        + f"; bitwise equal: {same} (the first run's params to the host "
+        f"{t_host:.2f} s, compared on the card "
+        f"{time.perf_counter() - t0:.2f} s); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     require(same, f"{cfg.name}: two runs on one seed differ")
-    del twin
-    ds, _, _ = federated_lm_silos.silo_world(cfg, TRAIN_SILOS, TRAIN_SEQ, 8)
-    toks = torch.from_numpy(ds.inputs[:TRAIN_SILOS * TRAIN_PER_SILO]).to(dev)
-    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    step = make_train_step(cfg, eta=0.05)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    new, met = step(params, batch)
-    torch.cuda.synchronize()
-    log(f"{cfg.name} plain train step: {1e3 * (time.perf_counter() - t0):.2f}"
-        f" ms, loss {float(met['loss']):.4f}, grad norm "
-        f"{float(met['grad_norm']):.4f}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    require(bool(torch.isfinite(met["loss"]) and torch.isfinite(
-        met["grad_norm"])), f"{cfg.name}: the plain step is not finite")
-    del new
-    if prof_ok:
-        prof = profile_rounds(StepRounds(step, params, batch, dev), 1,
-                              TRACE_DIR / cfg.name,
-                              warmup=0)
-        log_profile(f"{cfg.name} profiled train step", prof)
-    return launches, shapes
+    if full:
+        ds, _, _ = federated_lm_silos.silo_world(cfg, TRAIN_SILOS,
+                                                 TRAIN_SEQ, 8)
+        toks = torch.from_numpy(
+            ds.inputs[:TRAIN_SILOS * TRAIN_PER_SILO]).to(dev)
+        batch = train_batch(torch, cfg, toks, 8)
+        step = make_train_step(cfg, eta=0.05)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = step(params, batch)
+        torch.cuda.synchronize()
+        log(f"{cfg.name} plain train step: "
+            f"{1e3 * (time.perf_counter() - t0):.2f} ms, loss "
+            f"{float(met['loss']):.4f}, grad norm "
+            f"{float(met['grad_norm']):.4f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        require(bool(torch.isfinite(met["loss"]) and torch.isfinite(
+            met["grad_norm"])), f"{cfg.name}: the plain step is not finite")
+        del new
+        if prof_ok:
+            from repro_torch.obs import profile_rounds
+            prof = profile_rounds(StepRounds(step, params, batch, dev), 1,
+                                  TRACE_DIR / cfg.name, warmup=0)
+            log_profile(f"{cfg.name} profiled train step", prof)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shapes, bwd_shapes
 
 
 def first_layers(cfg, params, depth):
@@ -2877,6 +3101,9 @@ def main() -> int:
     tr_launches, tr_shapes = phase_lm_train(torch, dev, prof_ok)
     log(f"[LM training] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    zoo_train = phase_lm_zoo_train(torch, dev, prof_ok)
+    log(f"[LM zoo training] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
              for name in TPU_KERNELS if not name.endswith("_bwd")]
     # the training phase: the backward kernels at the train step's shapes
@@ -2896,6 +3123,12 @@ def main() -> int:
                rc_launches["persample_gradnorm"])]
     # the LM zoo phase: attention at its models' shapes
     cases += zoo_timing_cases()
+    # the zoo's training: K4-bwd at qwen2-7b's group 7, qwen3-moe's group
+    # 16 and llama-vision's cross layers
+    cases += [zoo_bwd_timing_case(arch, kind, zoo_train[arch])
+              for arch, kind in (("qwen2-7b", "global"),
+                                 ("qwen3-moe-235b-a22b", "global"),
+                                 ("llama-3.2-vision-11b", "cross"))]
     rows = phase_timing(torch, dev, cases, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")

@@ -273,8 +273,9 @@ def main() -> int:
         out[name] = {"max_abs_err": float((y - want).abs().max()), "ms": []}
     for name in [*designs, "one_pass"]:
         out[name]["ms"].append(cs.time_ms(torch, designs[name]))
+    from repro_torch.roofline import HBM_BW
     out["bound_ms"] = {f"{k} ({v} B an element)":
-                       v * B * T * D / cs.HBM_BYTES_PER_S * 1e3
+                       v * B * T * D / HBM_BW * 1e3
                        for k, v in (("one_pass", 12), ("two_pass", 20))}
     out["shape"] = [B, T, D]
     out["card"] = cs.smi()

@@ -43,7 +43,10 @@ def tree_map(fn, tree, *rest):
 
 
 def tree_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+    """The L2 norm of every leaf at once, in f32: each leaf's f32 copy is
+    squared in place, so one f32 copy of a leaf is live at a time."""
+    return torch.sqrt(sum(torch.sum(x.to(torch.float32, copy=True)
+                                    .square_())
                           for x in tree_leaves(tree)))
 
 

@@ -39,11 +39,25 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
     in f32), as 0-d tensors on the params' device.  The step is plain SGD,
     p - eta * g in each leaf's dtype; the params passed in are left as
     they were.
+
+    The step holds the params and one set of gradients, never a third
+    copy: each period of the stacked blocks is a leaf of its own, a view
+    of the stack whose gradient the backward adds in place into a slice
+    of one zero-filled stack (never a stacked copy of the periods'
+    gradients), and each new leaf is formed in its gradient's buffer
+    (``g *= eta``, then ``x - g`` into g: the rounding of ``x - eta *
+    g``).
     """
 
     def train_step(params, batch):
-        p = tree_map(lambda x: x.detach().requires_grad_(True), params)
-        leaves = tree_leaves(p)
+        p = {k: tree_map(_leaf, v) for k, v in params.items()
+             if k != "blocks"}
+        if "blocks" in params:
+            gblocks = tree_map(torch.zeros_like, params["blocks"])
+            n = tree_leaves(gblocks)[0].shape[0]
+            p["blocks"] = [tree_map(lambda x, g, i=i: _leaf(x[i], g[i]),
+                                    params["blocks"], gblocks)
+                           for i in range(n)]
         lm_batch = dict(batch)
         if federated:
             w = lm_batch.pop("schedule_weights").to(torch.float32)
@@ -55,18 +69,27 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
                                 device=w.device))
         with torch.enable_grad():
             total, metrics = T.loss_fn(p, cfg, lm_batch)
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            total.backward()
         with torch.no_grad():
-            grads = iter([torch.zeros_like(x) if g is None else g
-                          for x, g in zip(leaves, grads)])
-            grads = tree_map(lambda _: next(grads), p)
-            new = tree_map(lambda x, g: x - eta * g.to(x.dtype), p, grads)
+            grads = {k: (gblocks if k == "blocks" else tree_map(
+                lambda x: torch.zeros_like(x) if x.grad is None else x.grad,
+                p[k])) for k in params}
             gnorm = tree_norm(grads)
+            new = tree_map(lambda x, g: torch.sub(x, g.mul_(eta), out=g),
+                           params, grads)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(loss=total.detach(), grad_norm=gnorm)
         return new, metrics
 
     return train_step
+
+
+def _leaf(x, grad=None):
+    """x detached as a leaf of the step's backward; with ``grad``, the
+    buffer its gradient is added into."""
+    x = x.detach().requires_grad_(True)
+    x.grad = grad
+    return x
 
 
 def make_serve_step(cfg: ModelConfig):

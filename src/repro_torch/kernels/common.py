@@ -5,8 +5,9 @@ launched (and nowhere else), so a run can show which kernels the main
 path went through: set the counts to zero with ``reset_launches``, run,
 read ``LAUNCHES``.  ``LAST_SHAPES`` keeps the input shapes of each
 kernel's latest launch (for ``attention`` also its ``(causal, window)``),
-and ``SHAPES`` every distinct one since the reset, so a measurement or a
-check can replay the main path's shapes.
+and ``SHAPES`` counts each kernel's launches at every distinct one since
+the reset, so a measurement or a check can replay the main path's shapes
+and read how often each ran.
 
 CUDA C++ kernels are compiled on first use, from the sources under
 ``csrc/``, by ``nvcc`` into a shared library with a plain C interface
@@ -30,7 +31,8 @@ from pathlib import Path
 
 LAUNCHES: collections.Counter = collections.Counter()
 LAST_SHAPES: dict = {}
-SHAPES: collections.defaultdict = collections.defaultdict(set)
+SHAPES: collections.defaultdict = collections.defaultdict(
+    collections.Counter)
 # seconds spent in nvcc by this process, per source (0 when cached), and
 # ptxas's report of each kernel's registers, spills and shared memory
 BUILD_SECONDS: dict = {}
@@ -45,7 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 def count_launch(name: str, *shapes) -> None:
     LAUNCHES[name] += 1
     LAST_SHAPES[name] = tuple(tuple(s) for s in shapes)
-    SHAPES[name].add(LAST_SHAPES[name])
+    SHAPES[name][LAST_SHAPES[name]] += 1
 
 
 def reset_launches() -> None:

@@ -11,6 +11,17 @@ the flattened (token, slot) order, so the last tokens of the batch are
 the first dropped when an expert is over capacity.  The expert products
 are ``torch.bmm`` (no TPU kernel covers MoE: the JAX package computes
 them with ``einsum`` too).
+
+The dispatch (each slot's token, ``x_pad[src]``) and the combine (each
+token's k slots, ``y_flat[slot]``) are ``torch.autograd.Function``s whose
+backward is a gather in a fixed order (``_Dispatch``, ``_Combine``), so
+that a train step on the card is bitwise repeatable by the port's own
+code.  Autograd's backward of an index is an accumulating scatter
+(``index_put_`` with ``accumulate=True``), whose order is the library's:
+torch 2.11 sorts the indices on CUDA, and the plain gathers' backward
+repeated bit for bit on an H100, so these guard against a torch whose
+scatter adds in another order, not against a fault seen today.  Their
+forwards are the plain gathers, bitwise.
 """
 from __future__ import annotations
 
@@ -99,10 +110,61 @@ def _router_logits(params, x):
         torch.float32)
 
 
+class _Dispatch(torch.autograd.Function):
+    """x [T, d] -> x_buf [n_slots, d], slot s holding token src[s] (row T:
+    zeros).  Backward: dx[t] = sum over j = 0..k-1, in order, of d
+    x_buf[slot[t, j]], summed in f32 and rounded once; a dropped
+    assignment (slot n_slots, the scratch) adds nothing."""
+
+    @staticmethod
+    def forward(ctx, x, src, slot_2d):
+        ctx.save_for_backward(slot_2d)
+        x_pad = torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
+        return x_pad[src]
+
+    @staticmethod
+    def backward(ctx, g):
+        slot_2d, = ctx.saved_tensors
+        g_pad = torch.cat([g, g.new_zeros((1, g.shape[1]))], dim=0)
+        dx = g_pad[slot_2d[:, 0]].to(torch.float32)
+        for j in range(1, slot_2d.shape[1]):
+            dx = dx + g_pad[slot_2d[:, j]].to(torch.float32)
+        return dx.to(g.dtype), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y_flat [n_slots, d], w_2d [T, k] -> y [T, d] = sum over j, in slot
+    order, of y_flat[idx[:, j]] * w_2d[:, j], in y_flat's dtype (idx: the
+    slots, a dropped one clamped to a real slot with weight 0).
+    Backward, one term a slot: d y_flat[s] = w_slot[s] * dy[src[s]] (an
+    empty slot 0), read through the dispatch's inverse map ``src``; dw[t,
+    j] = <dy[t], y_flat[idx[t, j]]>.  ``slot_flat`` [T k] places the
+    weights on their slots (a dropped one on the scratch slot)."""
+
+    @staticmethod
+    def forward(ctx, y_flat, w_2d, idx, src, slot_flat):
+        ctx.save_for_backward(y_flat, w_2d, idx, src, slot_flat)
+        y = y_flat.new_zeros((idx.shape[0], y_flat.shape[1]))
+        for j in range(idx.shape[1]):
+            y = y + y_flat[idx[:, j]] * w_2d[:, j, None]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y_flat, w_2d, idx, src, slot_flat = ctx.saved_tensors
+        n_slots = y_flat.shape[0]
+        dw = torch.stack([(dy * y_flat[idx[:, j]]).sum(-1)
+                          for j in range(idx.shape[1])], dim=1)
+        w_slot = w_2d.new_zeros((n_slots + 1,))
+        w_slot[slot_flat] = w_2d.reshape(-1)
+        dy_pad = torch.cat([dy, dy.new_zeros((1, dy.shape[1]))], dim=0)
+        dy_flat = dy_pad[src] * w_slot[:n_slots, None]
+        return dy_flat, dw, None, None, None
+
+
 def _moe_local(params, cfg: ModelConfig, x, capacity):
     """Dispatch and expert compute over all experts for tokens x [T,d].
-    Returns (y [T,d], me [E], ce [E], fits [T,k] bool: the assignments
-    that found a slot)."""
+    Returns (y [T,d], me [E], ce [E]), as the JAX package's."""
     T, d = x.shape
     k, E = cfg.experts_per_token, cfg.num_experts
     weights, experts, probs = top_k_routing(_router_logits(params, x), k)
@@ -117,24 +179,22 @@ def _moe_local(params, cfg: ModelConfig, x, capacity):
     token_idx = torch.arange(T * k, device=x.device) // k
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
     src[slot_flat] = token_idx
-    x_pad = torch.cat([x, x.new_zeros((1, d))], dim=0)
-    x_buf = x_pad[src[:n_slots]].reshape(E, capacity, d)
+    src = src[:n_slots]
+    slot_2d = slot_flat.reshape(T, k)
+    x_buf = _Dispatch.apply(x, src, slot_2d).reshape(E, capacity, d)
 
     y_flat = _expert_ffn(params, x_buf).reshape(n_slots, d)
 
     # combine: one gather a top-k slot, added in slot order in x's dtype
-    slot_2d = slot_flat.reshape(T, k)
     w_2d = (weights.reshape(-1) * fits.to(torch.float32)).reshape(
         T, k).to(x.dtype)
-    y = x.new_zeros((T, d))
-    for j in range(k):
-        idx = torch.clamp(slot_2d[:, j], 0, n_slots - 1)
-        y = y + y_flat[idx] * w_2d[:, j, None]
+    y = _Combine.apply(y_flat, w_2d, torch.clamp(slot_2d, 0, n_slots - 1),
+                       src, slot_flat)
 
     # switch-style load-balance statistics over all experts
     me = probs.mean(dim=0)
     ce = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * k)
-    return y, me, ce, fits.reshape(T, k)
+    return y, me, ce
 
 
 def moe_ffn(params, cfg: ModelConfig, x):
@@ -142,7 +202,7 @@ def moe_ffn(params, cfg: ModelConfig, x):
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     capacity = _capacity(B * S, k, E, cfg.capacity_factor)
-    y, me, ce, _ = _moe_local(params, cfg, x.reshape(B * S, d), capacity)
+    y, me, ce = _moe_local(params, cfg, x.reshape(B * S, d), capacity)
     aux = cfg.router_aux_loss * E * torch.sum(me * ce)
     y = y.reshape(B, S, d)
     if "shared" in params:

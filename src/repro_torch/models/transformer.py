@@ -395,7 +395,15 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     decode that follows.  With ``cfg.remat``, each layer runs under
     ``torch.utils.checkpoint`` when a gradient is being recorded (as the
     JAX package's ``jax.checkpoint``), so the backward recomputes it
-    and holds one layer's transients at a time."""
+    and holds one layer's transients at a time.
+
+    ``params["blocks"]`` comes in one of two forms.  Every caller but the
+    train step passes the stacked tree ``init`` makes, unbound here once
+    (under autograd, the unbind's backward stacks the periods' gradients
+    into one new tensor).  ``fl.distributed.make_train_step`` passes a
+    list of period trees whose leaves are leaves of its backward, each
+    with a slice of one preallocated stack as its ``.grad``, so that no
+    stacked copy of the gradients is made."""
     x = _embed(params, cfg, batch)
     enc = _encoder_states(params, cfg, batch)
     S = x.shape[1]
@@ -414,11 +422,13 @@ def forward_hidden(params, cfg: ModelConfig, batch,
         return x, aux + a, st
 
     cache = {}
-    # one unbind of each stacked leaf: its backward stacks the periods'
-    # gradients once (a view per period would add a zero-filled copy of
-    # the whole stack per period)
+    # a stack is unbound once (a view per period would add a zero-filled
+    # copy of the whole stack per period to its backward); the train
+    # step's list of periods is used as it is
     nper = cfg.num_full_periods
-    periods = _unbind(params["blocks"], nper) if nper else []
+    blocks = params.get("blocks")
+    periods = (blocks if isinstance(blocks, list)
+               else _unbind(blocks, nper) if nper else [])
     for pi, pparams in enumerate(periods):
         st = {}
         for i, kind in enumerate(cfg.block_pattern):

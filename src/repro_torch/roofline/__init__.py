@@ -1,0 +1,12 @@
+from repro_torch.roofline.analysis import (  # noqa: F401
+    F32_FLOPS,
+    HBM_BW,
+    LINK_BW,
+    PEAK_FLOPS,
+    TF32_FLOPS,
+    InputShape,
+    Roofline,
+    count_params,
+    model_flops,
+    roofline_terms,
+)

@@ -941,3 +941,91 @@ def test_kernel_outputs_carry_gradients_on_card(cuda):
     for op in (ops.wemd_add, ops.wemd_swap):
         with pytest.raises(NotImplementedError, match="wemd"):
             op(p_sum, p_dev.requires_grad_(True), gd, cw, sizes)
+
+
+# K4-bwd at the LM zoo's train shapes: 8 silos x 2 sequences x 256 tokens
+# (B = 16, S = 256), so ``gqa_parts`` picks the train step's part counts
+# (7 for qwen2-7b's group 7 on 4 key heads, 2 for qwen3-moe's group 16, 1
+# elsewhere): groups 7 (qwen2-7b; yi-34b and arctic-480b on 8 key heads),
+# 16 (qwen3-moe-235b-a22b) and 4 (llama-3.2-vision-11b's self layers),
+# musicgen-large's hd 64 with 32 heads on 32, llama-vision's cross
+# attention of 256 queries over 1601 encoder keys (a key tile 1 key deep),
+# non-causal, and gemma3-27b's local layers at S = T = 2048 (its window of
+# 1024 never bites at 256).  B, H, KV, S, T, hd, causal, window.
+ZOO_ATTN_BWD_CASES = [(16, 28, 4, 256, 256, 128, True, 0),
+                      (16, 56, 8, 256, 256, 128, True, 0),
+                      (16, 64, 4, 256, 256, 128, True, 0),
+                      (16, 32, 8, 256, 256, 128, True, 0),
+                      (16, 32, 32, 256, 256, 64, True, 0),
+                      (16, 32, 8, 256, 1601, 128, False, 0),
+                      (1, 32, 16, 2048, 2048, 128, True, 1024)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,T,hd,causal,window", ZOO_ATTN_BWD_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_bwd_kernel_zoo_train_shapes_on_card(cuda, B, H, KV, S, T,
+                                                       hd, causal, window,
+                                                       dtype):
+    """dq, dk, dv at the zoo's train shapes against autograd of the plain
+    version, through the model's [B, S, H, hd] strides: bf16 at
+    ``BF16_ATTN_TOL``, f32 at atol 3e-5 / rtol 1e-4; a second call
+    bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+    dt = getattr(torch, dtype)
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(H + T + hd + window),
+                                  B, H, KV, S, T, hd, dt, cuda)
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window)
+    again = flash_attention_bwd_cuda(q, k, v, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    want = tref.attention_bwd_ref(q, k, v, do, causal=causal, window=window)
+    tol = BF16_ATTN_TOL if dt == torch.bfloat16 else (3e-5, 1e-4)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.dtype == dt and torch.equal(g, g2), name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol[0],
+                                   rtol=tol[1], msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_backward_repeatable_on_card(cuda, dtype):
+    """The MoE layer's forward and backward twice on the card, at 2048
+    tokens over 16 experts of top-4 (empty slots, and tokens dropped at
+    capacity factor 0.5): every gradient bitwise equal, and within 1e-4
+    relative L2 of the same layer's f32 gradients on the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b").reduced(),
+                              num_experts=16, experts_per_token=4,
+                              capacity_factor=0.5)
+    dt = getattr(torch, dtype)
+    params = M.moe_params_init(torch.Generator().manual_seed(0), cfg,
+                               torch.float32)
+    x = torch.as_tensor(randn(np.random.default_rng(5),
+                              (4, 512, cfg.d_model)))
+    dy = torch.as_tensor(randn(np.random.default_rng(6),
+                               (4, 512, cfg.d_model)))
+
+    def grads(dev, dtype):
+        leaves = {k: v.detach().to(dev, dtype if v.dim() == 3 else
+                                    v.dtype).requires_grad_(True)
+                  for k, v in params.items() if not isinstance(v, dict)}
+        p = dict(params, **leaves)
+        p["shared"] = {k: v.to(dev, dtype) for k, v in
+                       params["shared"].items()}
+        xs = x.to(dev, dtype).requires_grad_(True)
+        with torch.enable_grad():
+            y, aux = M.moe_ffn(p, cfg, xs)
+            out = torch.autograd.grad((y, aux), [xs, *leaves.values()],
+                                      (dy.to(dev, dtype),
+                                       torch.ones((), device=dev)))
+        return [g.float().cpu() for g in out]
+
+    one, two = grads(cuda, dt), grads(cuda, dt)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    if dt == torch.float32:
+        for g, w in zip(one, grads("cpu", torch.float32)):
+            assert float((g - w).norm() / w.norm()) <= 1e-4

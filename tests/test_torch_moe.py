@@ -63,11 +63,15 @@ def close_aux(got, want):
 
 
 def t_fits(tp, tcfg, x):
-    """The port's kept assignments [T, k] for tokens x [B,S,d]."""
+    """The port's kept assignments [T, k] for tokens x [B,S,d], from its
+    own routing, ranks and capacity."""
     xt = t(x).reshape(-1, x.shape[-1])
+    _, experts, _ = TM.top_k_routing(TM._router_logits(tp, xt),
+                                     tcfg.experts_per_token)
+    pos, _ = TM._positions_in_expert(experts.reshape(-1), tcfg.num_experts)
     cap = TM._capacity(xt.shape[0], tcfg.experts_per_token,
                        tcfg.num_experts, tcfg.capacity_factor)
-    return TM._moe_local(tp, tcfg, xt, cap)[3]
+    return (pos < cap).reshape(experts.shape)
 
 
 def j_moe(jp, jcfg, x):
@@ -231,24 +235,38 @@ def rel_l2(got, want):
     return np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "moonshot-v1-16b-a3b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "moonshot-v1-16b-a3b",
+                                  "gemma3-27b", "llama-3.2-vision-11b",
+                                  "musicgen-large", "arctic-480b"])
 def test_train_step_matches_value_and_grad(arch):
     """``make_train_step`` (eta 0.1) on 4 sequences of 12 tokens: loss,
     CE and aux against the reference's ``loss_fn`` under
     ``jax.value_and_grad``, and every new param and its update (-eta x
     the gradient) against the reference's gradient step; the MoE's 48
     tokens run at its published capacity factor (1.25, so the capacity
-    floor of 32 binds)."""
+    floor of 32 binds).  gemma3-27b: QK norm and the tied head;
+    llama-3.2-vision-11b: the cross layers and their gates over 16
+    encoder embeddings; musicgen-large: frame embeddings in place of the
+    tokens; arctic-480b: the dense residual beside the experts."""
     jcfg, tcfg = cfgs(arch)
     jp, tp = weights(arch)
     rng = np.random.default_rng(11)
     toks = rng.integers(0, jcfg.vocab_size, (4, 13)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    if jcfg.family == "audio":
+        batch["frame_embeddings"] = rng.normal(
+            size=(4, 12, jcfg.encoder_dim)).astype(np.float32)
+        del batch["tokens"]
+    if jcfg.family == "vlm":
+        batch["encoder_embeddings"] = rng.normal(
+            size=(4, jcfg.num_encoder_tokens, jcfg.encoder_dim)).astype(
+                np.float32)
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
         lambda p, b: JT.loss_fn(p, jcfg, b), has_aux=True))(
             jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tnew, tmet = TD.make_train_step(tcfg, eta=0.1)(
-        tp, {k: t(v).long() for k, v in batch.items()})
+        tp, {k: t(v).long() if v.dtype == np.int32 else t(v)
+             for k, v in batch.items()})
     for got, want in ((tmet["loss"], jloss), (tmet["ce_loss"],
                                               jmet["ce_loss"])):
         assert abs(float(got) - float(want)) <= LOSS_RTOL * abs(float(want))
