@@ -150,6 +150,26 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      version (bf16 and f32, two calls bitwise equal) at every shape those
      steps launched it at and at gemma3-27b's local layers at S = T =
      2048 (window 1024);
+ 8c. the sharding context on the one card (``phase_sharded``): a
+     one-rank nccl group from an in-process ``HashStore``, a (1, 1)
+     ("data", "model") mesh and ``launch.shardings.make_ctx`` with the
+     regime the 16-way production model axis picks; one federated train
+     step (phase 8's world) of qwen2-7b at full depth (context-parallel),
+     moonshot-v1-16b-a3b at 24 layers (MoE, every expert local),
+     llama-3.2-vision-11b (cross attention), recurrentgemma-2b and
+     rwkv6-3b (K6 / K5 and their backward kernels through ``local_map``)
+     on DTensor params, each bitwise equal to the unsharded step (loss,
+     grad norm, every param leaf) with the same launches
+     (``SHARDED_TRAIN``); qwen2-7b's prefill of 4 x 3072 tokens and 8
+     decode steps bitwise equal to the unsharded ones; K4 and K4-bwd on
+     query shards at their offsets against the plain version at
+     qwen2-7b's and gemma3-27b's heads, bf16 and f32 (``Q_OFFSET_*``);
+     and, in processes of their own on the host's CPU, the dry runs of
+     qwen2-7b train_4k on 16x16 and 2x16x16 and moonshot-v1-16b-a3b on
+     16x16 (``repro_torch.launch.dryrun``): per device FLOPs, bytes,
+     collective bytes, peak and the roofline's bottleneck logged, and
+     qwen2-7b's counted FLOPs x devices over 6 N D within
+     ``DRYRUN_RATIO``;
   9. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes, the backward kernels at the
      train step's (K5-bwd from the forward's chunk states, no library
@@ -283,6 +303,9 @@ HEAD_TOL = 1e-4
 # step (< 2**-7 relative) plus f32 noise
 BF16_ATTN_TOL = (1e-3, 8e-3)
 F32_ATTN_TOL = (3e-5, 1e-4)
+# psg_path's trace of K3's round call: calls a trace, and traces that may
+# come back empty before its "the kernel alone" check fails
+PSG_CALLS, PSG_TRACES = 100, 4
 
 
 def log(msg: str) -> None:
@@ -572,6 +595,25 @@ def device_kernels(torch, fn):
             out[ev.key[:60]] = [t / ev.count / 1e3,
                                 max(1, round(ev.count / n))]
     return out
+
+
+def attention_bwd_trace(torch, fn, kernels, tries=3):
+    """K4-bwd's ``device_kernels``, traced again (``tries`` in all) until
+    it names both the dq and the dkv kernel; None (no device time) when
+    no trace does.  A trace that dropped one of them would give the time
+    of half the work."""
+    def whole(ks):
+        return all(any(f"attn_bwd_{part}" in key for key in ks)
+                   for part in ("dq", "dkv"))
+    for i in range(tries):
+        if whole(kernels):
+            return kernels
+        log(f"attention_bwd: trace {i + 1} lacks the dq or the dkv kernel "
+            f"({sorted(kernels)})")
+        if i + 1 < tries:
+            kernels = device_kernels(torch, fn)
+    log("attention_bwd: no whole trace; no device time for this row")
+    return None
 
 
 def device_ms(torch, fn, kernels=None):
@@ -2556,6 +2598,332 @@ def phase_lm_zoo_train(torch, dev, prof_ok):
     return out
 
 
+# phase 8c: the sharding context on one card (world size 1) and the dry
+# run.  (arch, depth): each model the phase trains at phase 8b's depth,
+# with the regime its production mesh picks (tp_capable at 16 ranks):
+# qwen2-7b, recurrentgemma-2b and rwkv6-3b context-parallel (tp False),
+# moonshot-v1-16b-a3b (its MoE layer at a model axis of 1: every expert
+# local) and llama-3.2-vision-11b (cross attention) tensor-parallel
+SHARDED_TRAIN = (("qwen2-7b", None), ("moonshot-v1-16b-a3b", 24),
+                 ("llama-3.2-vision-11b", None), ("recurrentgemma-2b", None),
+                 ("rwkv6-3b", None))
+SHARDED_PREFILL, SHARDED_DECODES = (4, 3072), 8
+# the dry runs: (arch, shape, multi-pod), in a process each on the host's
+# CPU (a "fake" group of 256 / 512 ranks, meta tensors)
+DRYRUNS = (("qwen2-7b", "train_4k", False), ("qwen2-7b", "train_4k", True),
+           ("moonshot-v1-16b-a3b", "train_4k", False))
+DRYRUN_DIR = ROOT / ".torch_ext_build" / "dryrun"
+# counted FLOPs x devices over 6 N D for qwen2-7b train_4k: per-layer remat
+# runs the trunk's forward twice (8 N D, less the last product of each
+# layer, whose recompute the checkpoint skips) and the plain attention
+# counts the whole S x T matrix; outside this range a layer is counted
+# twice or not at all, or the counts are global
+DRYRUN_RATIO = (1.0, 2.0)
+# K4 / K4-bwd on a shard [a, b) of the queries at q_offset = a, over all
+# keys (context parallelism): qwen2-7b's and gemma3-27b's prefill heads
+# (B, H, KV, S, hd, window) and the slices, edges mid-way through the
+# 64-key and 128-query tiles
+Q_OFFSET_SHAPES = ((1, 28, 4, 3072, 128, 0), (1, 32, 16, 3072, 128, 1024))
+Q_OFFSET_SLICES = ((0, 1000), (1000, 2048), (2048, 3072), (1100, 1237))
+
+
+def start_dryruns():
+    """The dry runs' processes (their CPU work overlaps the card's)."""
+    import os
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape, mp in DRYRUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(DRYRUN_DIR)]
+        procs.append(((arch, shape, mp), subprocess.Popen(
+            cmd + (["--multi-pod"] if mp else []), cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs, timeout=600):
+    """Wait for the dry runs (killing any left on a failure), log each
+    one's per-device numbers and bottleneck, and hold qwen2-7b
+    train_4k's counted FLOPs x devices over 6 N D to ``DRYRUN_RATIO``."""
+    t0 = time.perf_counter()
+    try:
+        for (arch, shape, mp), p in procs:
+            out, _ = p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            tag = f"{arch}_{shape}_{'2x16x16' if mp else '16x16'}"
+            require(p.returncode == 0, f"dry run {tag} failed:\n{out[-3000:]}")
+            res = json.loads((DRYRUN_DIR / f"{tag}.json").read_text())
+            r, c = res["roofline"], res["collectives"]
+            peak = res["memory_analysis"]["peak_bytes_per_device"]
+            ratio = (r["flops_per_device"] * r["chips"] / r["model_flops"])
+            log(f"dry run {tag} ({res['chips']} fake ranks, tp "
+                f"{res['tp_mode']}, trace {res['trace_s']:.2f} s): per "
+                f"device {r['flops_per_device']:.6e} FLOPs, "
+                f"{r['bytes_per_device']:.6e} bytes (unfused), "
+                f"{r['collective_bytes_per_device']:.6e} collective bytes "
+                f"(" + ", ".join(f"{k} {c[k]:.4e} x{c['counts'][k]}"
+                                 for k in c["counts"] if c["counts"][k])
+                + f"), peak {peak / 2**30:.3f} GiB; roofline at the H100's "
+                f"peaks: compute "
+                f"{r['compute_s']:.4e} s, memory {r['memory_s']:.4e} s, "
+                f"collective {r['collective_s']:.4e} s -> "
+                f"{r['bottleneck']}-bound; counted FLOPs x devices / "
+                f"6 N D = {ratio:.4f}")
+            if (arch, shape) == ("qwen2-7b", "train_4k"):
+                require(DRYRUN_RATIO[0] <= ratio <= DRYRUN_RATIO[1],
+                        f"dry run {tag}: counted over model FLOPs {ratio:.4f}"
+                        f" outside {DRYRUN_RATIO}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def sharded_ctx(cfg, mesh, kind, B, S):
+    """``launch.shardings.make_ctx`` on the one-rank mesh, with the
+    regime (``tp``) the 16-way production model axis picks for ``cfg``
+    (on a model axis of 1 every head count divides it)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.shapes import InputShape
+    ctx = SH.make_ctx(cfg, mesh, InputShape(kind, S, B, kind))
+    return dataclasses.replace(
+        ctx, tp=SH.tp_capable(get_config(cfg.name), 16))
+
+
+def _shard(cfg, tree, ctx, mesh, kind):
+    from repro_torch.launch import shardings as SH
+    from repro_torch.sharding import shard_tree
+    rule = {"params": lambda t: SH.param_shardings(t, cfg, ctx),
+            "batch": lambda t: SH.batch_shardings(t, ctx)}[kind]
+    return shard_tree(tree, rule(tree), mesh)
+
+
+def sharded_train(torch, dev, host, mesh, arch, depth):
+    """One federated train step of ``arch`` (phase 8's world: 8 silos x 2
+    x 256 tokens, silo 3 unscheduled) unsharded, then on DTensor params
+    under its ctx: loss, grad norm, the other metrics and every new param
+    leaf bitwise equal, and the kernels launched the same times.  Logs
+    both steps' ms and peak memory.  Returns the sharded step's
+    launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_train_step, silo_weights
+    from repro_torch.kernels import common
+    from repro_torch.launch import federated_lm_silos
+    from repro_torch.sharding import local
+    cfg = get_config(arch)
+    if depth:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = train_params(torch, cfg, gen)
+    ds, _, _ = federated_lm_silos.silo_world(cfg, TRAIN_SILOS, TRAIN_SEQ, 8)
+    B = TRAIN_SILOS * TRAIN_PER_SILO
+    batch = train_batch(torch, cfg, torch.from_numpy(ds.inputs[:B]).to(dev),
+                        8)
+    mask = np.ones(TRAIN_SILOS)
+    mask[3] = 0
+    batch["schedule_weights"] = silo_weights(mask, TRAIN_SILOS) \
+        .repeat_interleave(TRAIN_PER_SILO).to(dev)
+    out = {}
+    sctx = sharded_ctx(cfg, mesh, "train", B, TRAIN_SEQ)
+    for name, ctx in (("unsharded", None), ("sharded", sctx)):
+        p, b = params, batch
+        if ctx is not None:
+            p = _shard(cfg, params, ctx, mesh, "params")
+            b = _shard(cfg, batch, ctx, mesh, "batch")
+        step = make_train_step(cfg, eta=0.05, federated=True, ctx=ctx)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        common.reset_launches()
+        t0 = time.perf_counter()
+        new, met = step(p, b)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        out[name] = (dict(common.LAUNCHES), met, ms,
+                     torch.cuda.max_memory_allocated() / 2**30)
+        if ctx is None:
+            first = host.hold(new)
+        else:
+            same = all(torch.equal(first[k].to(dev), local(x))
+                       for k, x in _paths(new))
+        del new
+    (l0, m0, ms0, pk0), (l1, m1, ms1, pk1) = out["unsharded"], out["sharded"]
+    same_m = all(torch.equal(m0[k], m1[k]) for k in m0)
+    log(f"{cfg.name} ({cfg.num_layers} layers, tp {sctx.tp}) federated "
+        f"train step on the (1, 1) mesh: unsharded {ms0:.2f} ms, "
+        f"peak {pk0:.2f} GiB; sharded (DTensor) {ms1:.2f} ms, peak "
+        f"{pk1:.2f} GiB; loss {float(m1['loss']):.6f}, grad norm "
+        f"{float(m1['grad_norm']):.6f}; metrics bitwise equal {same_m}, "
+        f"params bitwise equal {same}; launches {l1} (unsharded {l0})")
+    require(same_m and same, f"{cfg.name}: the sharded step differs from "
+            f"the unsharded one at world size 1")
+    require(l0 == l1 and l1 == train_step_launches(cfg),
+            f"{cfg.name}: launches {l1}, unsharded {l0}")
+    del params
+    return l1
+
+
+def sharded_serve(torch, dev, mesh):
+    """qwen2-7b's prefill of 4 x 3072 tokens and 8 greedy decode steps,
+    unsharded then under the prefill and decode ctxs: every step's
+    logits and the final cache bitwise equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_prefill_step, make_serve_step
+    from repro_torch.kernels import common
+    from repro_torch.sharding import local
+    cfg = get_config("qwen2-7b")
+    B, S = SHARDED_PREFILL
+    gen = torch.Generator(device=dev).manual_seed(1)
+    params = train_params(torch, cfg, gen)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    L = S + SHARDED_DECODES
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        pctx = dctx = None
+        p = params
+        if name == "sharded":
+            pctx = sharded_ctx(cfg, mesh, "prefill", B, S)
+            dctx = sharded_ctx(cfg, mesh, "decode", B, S)
+            p = _shard(cfg, params, pctx, mesh, "params")
+
+        def inputs(tree, ctx):
+            return tree if ctx is None else _shard(cfg, tree, ctx, mesh,
+                                                   "batch")
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = make_prefill_step(cfg, L, ctx=pctx)(
+                p, inputs({"tokens": prompt}, pctx))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = [local(logits).clone()]
+            serve = make_serve_step(cfg, ctx=dctx)
+            for i in range(SHARDED_DECODES):
+                # greedy on the unsharded run's logits: both runs decode
+                # the same tokens
+                last = runs["unsharded"][0][i] if runs else out[-1]
+                tok = last[:, -1].argmax(-1)[:, None]
+                logits, cache = serve(p, cache, inputs({"tokens": tok},
+                                                       dctx))
+                out.append(local(logits).clone())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs[name] = (out, {k: local(x) for k, x in _paths(cache)},
+                      1e3 * (t1 - t0), 1e3 * (t2 - t1) / SHARDED_DECODES,
+                      dict(common.LAUNCHES))
+    (o0, c0, p0, d0, l0), (o1, c1, p1, d1, l1) = runs["unsharded"], \
+        runs["sharded"]
+    same = all(torch.equal(a, b) for a, b in zip(o0, o1)) and all(
+        torch.equal(c0[k], c1[k]) for k in c0)
+    log(f"qwen2-7b prefill {B} x {S} and {SHARDED_DECODES} decode steps: "
+        f"unsharded {p0:.2f} ms + {d0:.2f} ms a step, sharded {p1:.2f} ms "
+        f"+ {d1:.2f} ms a step; launches {l1} (unsharded {l0}); logits and "
+        f"cache bitwise equal {same}")
+    require(same and l0 == l1 and l1.get("attention", 0) == cfg.num_layers,
+            "qwen2-7b: the sharded prefill / decode differs from the "
+            "unsharded one")
+    del params
+
+
+def q_offset_checks(torch, dev):
+    """K4 and K4-bwd on query shards at their offsets against the plain
+    version (module constant ``Q_OFFSET_SHAPES``), bf16 and f32 at the
+    phase 2 tolerances."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    worst = {}
+    for B, H, KV, S, hd, window in Q_OFFSET_SHAPES:
+        for dtype, tol in ((torch.bfloat16, BF16_ATTN_TOL),
+                           (torch.float32, F32_ATTN_TOL)):
+            q, k, v = attn_inputs(torch, B, H, KV, S, S, hd, dtype, S + H,
+                                  dev)
+            do = attn_inputs(torch, B, H, KV, S, S, hd, dtype, 7, dev)[0]
+            full = ref.attention_ref(q, k, v, causal=True, window=window)
+            for a, b in Q_OFFSET_SLICES:
+                qs, dos = q[:, :, a:b], do[:, :, a:b]
+                out = flash_attention_cuda(qs, k, v, window=window,
+                                           q_offset=a)
+                got = flash_attention_bwd_cuda(qs, k, v, dos, window=window,
+                                               q_offset=a)
+                want = ref.attention_bwd_ref(qs, k, v, dos, window=window,
+                                             q_offset=a)
+                torch.cuda.synchronize()
+                for name, g, w in (("out", out, full[:, :, a:b]),
+                                   *zip(("dq", "dk", "dv"), got, want)):
+                    err = float(((g.float() - w.float()).abs()
+                                 / (tol[0] + tol[1] * w.float().abs()))
+                                .max())
+                    key = f"{name}.{str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    require(err <= 1.0, f"K4 at q_offset {a} ({H} heads, "
+                            f"window {window}, {dtype}): {name} off by "
+                            f"{err:.3f} x the tolerance")
+            del q, k, v, do, full
+    log("K4 / K4-bwd on query shards at their offsets (qwen2-7b's and "
+        "gemma3-27b's heads, S = T = 3072, slices "
+        f"{list(Q_OFFSET_SLICES)}): worst error over the tolerance "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(worst.items())))
+
+
+def phase_sharded(torch, dev):
+    """Phase 8c: the dry runs start on the host's CPU; a one-rank nccl
+    group (from an in-process HashStore) and a (1, 1) ("data", "model")
+    mesh; ``sharded_train`` for each of ``SHARDED_TRAIN``,
+    ``sharded_serve``, ``q_offset_checks``; then the dry runs' results
+    (``finish_dryruns``).  Returns the sharded steps' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    procs = start_dryruns()
+    launches = {}
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        mesh = make_debug_mesh(1, 1, device_type="cuda")
+        host = HostParams(torch)
+        for arch, depth in SHARDED_TRAIN:
+            t0 = time.perf_counter()
+            launches[arch] = sharded_train(torch, dev, host, mesh, arch,
+                                           depth)
+            log(f"[sharded, {arch}] done in {time.perf_counter() - t0:.2f} s")
+        del host
+        t0 = time.perf_counter()
+        sharded_serve(torch, dev, mesh)
+        log(f"[sharded serving] done in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        q_offset_checks(torch, dev)
+        log(f"[K4 query offsets] done in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        finish_dryruns(procs)
+        log(f"[dry runs] waited {time.perf_counter() - t0:.2f} s")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    from repro_torch.kernels import common
+    common.reset_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def zoo_bwd_timing_case(arch, kind, trained):
     """phase_timing's K4-bwd row at the shape ``arch``'s train step
     launched it at for its layers of ``kind`` (``trained``: that model's
@@ -2913,20 +3281,23 @@ def psg_path(torch, dev, shp, prof_ok):
     require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
             f"persample_gradnorm: ops is not the kernel's call at {shp}")
     if prof_ok:
-        # a trace that recorded no device op at all (CUPTI drops one now
-        # and then) is taken again, up to three times; any op it does
-        # record but the kernel fails the check
-        for attempt in range(3):
+        # late in a long run a trace can lose a batch of two dozen device
+        # records or so, every other trace (at every K3 shape): the trace
+        # takes PSG_CALLS calls, more than such a batch, and one that
+        # still records no device op proves nothing and is taken again,
+        # PSG_TRACES times in all; any op a trace does record but the
+        # kernel fails the check
+        for attempt in range(1, PSG_TRACES + 1):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
+                for _ in range(PSG_CALLS):
                     ops.persample_gradnorm(*args)
                 torch.cuda.synchronize()
             ran = {e.key: e.count for e in prof.key_averages()
                    if e.self_device_time_total > 0}
+            log(f"persample_gradnorm at {shp}: trace {attempt} recorded "
+                f"{sum(ran.values())} device ops over {PSG_CALLS} calls")
             if ran:
                 break
-            log(f"persample_gradnorm at {shp}: trace {attempt + 1} "
-                f"recorded no device op")
         require(ran and all("psg_kernel" in k for k in ran),
                 f"persample_gradnorm: the round's call ran {ran}, not the "
                 f"kernel alone")
@@ -3006,13 +3377,15 @@ def phase_timing(torch, dev, cases, prof_ok):
         b_ms, b_by = bound(name, shp, itemsize)
         route, src = SOURCES[name]
         kernels = device_kernels(torch, kern) if prof_ok else None
+        if name == "attention_bwd" and prof_ok:
+            kernels = attention_bwd_trace(torch, kern, kernels)
         row = {"name": row_name, "route": route, "source": src,
                "replaces": TPU_KERNELS[name],
                "launches": int(n_launches), "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                "bound_by": b_by, "library_ms": lib_ms,
-               "device_ms": (device_ms(torch, kern, kernels) if prof_ok
-                             else None),
+               "device_ms": (device_ms(torch, kern, kernels)
+                             if kernels else None),
                "plain_device_ms": (device_ms(torch, plain)
                                    if prof_ok else None),
                "sm_clock_power_after": clock_power,
@@ -3103,6 +3476,10 @@ def main() -> int:
     t0 = time.perf_counter()
     zoo_train = phase_lm_zoo_train(torch, dev, prof_ok)
     log(f"[LM zoo training] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    sharded = phase_sharded(torch, dev)
+    log(f"[sharded] done in {time.perf_counter() - t0:.2f} s; launches "
+        f"{sharded}")
     t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
              for name in TPU_KERNELS if not name.endswith("_bwd")]

@@ -8,15 +8,20 @@ For tau = 1 a FedCGD round is
 
 i.e. one SGD step on the *schedule-weighted* loss: the per-example loss
 weights carry alpha_v * x_v, so an unscheduled silo weighs 0 and the step
-itself never changes from round to round.  The reference's sharding
-context is not ported yet (ROADMAP.md, Queue 1): every step runs on the
-device its tensors lie on.
+itself never changes from round to round.
 
-  make_train_step(cfg, eta, federated) -> train_step(params, batch)
-                                          -> (new params, metrics)
-  make_serve_step(cfg)                 -> serve_step(params, cache, batch)
-  make_prefill_step(cfg, cache_len)    -> prefill_step(params, batch)
-                                          -> (logits [B,1,V], cache)
+Each maker takes ``ctx`` (a ``ShardingCtx``, keyword, default None).
+With a mesh the params, batch and cache are DTensors placed by
+``launch.shardings``'s rules, and the step runs the model under that ctx
+(its activations constrained, its kernels on local shards, the MoE
+layers expert-parallel); without one every step runs on the device its
+tensors lie on, as before.
+
+  make_train_step(cfg, eta, federated, ctx=) -> train_step(params, batch)
+                                                -> (new params, metrics)
+  make_serve_step(cfg, ctx=)           -> serve_step(params, cache, batch)
+  make_prefill_step(cfg, cache_len, ctx=) -> prefill_step(params, batch)
+                                             -> (logits [B,1,V], cache)
   silo_weights(schedule_mask, n_silos) -> alpha_v * x_v per silo
 """
 from __future__ import annotations
@@ -26,10 +31,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.estimation import tree_leaves, tree_map, tree_norm
 from repro_torch.models import transformer as T
+from repro_torch.sharding import is_dtensor, sharded_scope
 
 
 def make_train_step(cfg: ModelConfig, eta: float = 0.1,
-                    federated: bool = False):
+                    federated: bool = False, *, ctx=None):
     """Returns train_step(params, batch) -> (new params, metrics).
 
     batch: tokens/targets [B, S] (and an optional loss_mask [B, S]); when
@@ -47,9 +53,19 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
     gradients), and each new leaf is formed in its gradient's buffer
     (``g *= eta``, then ``x - g`` into g: the rounding of ``x - eta *
     g``).
+
+    With DTensor params (``ctx`` with a mesh) the same holds shard by
+    shard: each gradient is brought to its param's placements and the
+    new leaf formed in its local buffer; the gradient norm is reduced
+    over every shard (the same scalar on every rank), and the metrics are
+    plain replicated tensors.
     """
 
     def train_step(params, batch):
+        with sharded_scope(ctx):
+            return _train_step(params, batch)
+
+    def _train_step(params, batch):
         p = {k: tree_map(_leaf, v) for k, v in params.items()
              if k != "blocks"}
         if "blocks" in params:
@@ -68,20 +84,46 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
                 else torch.ones((w.shape[0], S), dtype=torch.float32,
                                 device=w.device))
         with torch.enable_grad():
-            total, metrics = T.loss_fn(p, cfg, lm_batch)
+            total, metrics = T._loss_fn(p, cfg, lm_batch, 0.0, ctx)
             total.backward()
         with torch.no_grad():
             grads = {k: (gblocks if k == "blocks" else tree_map(
                 lambda x: torch.zeros_like(x) if x.grad is None else x.grad,
                 p[k])) for k in params}
+            grads = tree_map(_placed_like, params, grads)
             gnorm = tree_norm(grads)
-            new = tree_map(lambda x, g: torch.sub(x, g.mul_(eta), out=g),
-                           params, grads)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(loss=total.detach(), grad_norm=gnorm)
+            new = tree_map(lambda x, g: _sgd(x, g, eta), params, grads)
+        metrics = {k: _full(v.detach()) for k, v in metrics.items()}
+        metrics.update(loss=_full(total.detach()), grad_norm=_full(gnorm))
         return new, metrics
 
     return train_step
+
+
+def _placed_like(x, g):
+    """A DTensor gradient at its param's placements (a partial sum
+    reduced, a replicated one sliced); anything else as it is."""
+    if is_dtensor(x) and tuple(g.placements) != tuple(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g
+
+
+def _sgd(x, g, eta):
+    """x - eta * g formed in g's buffer (for DTensors, g's local shard;
+    g is at x's placements)."""
+    if not is_dtensor(x):
+        return torch.sub(x, g.mul_(eta), out=g)
+    from torch.distributed.tensor import DTensor
+    gl = g.to_local()
+    torch.sub(x.to_local(), gl.mul_(eta), out=gl)
+    return DTensor.from_local(gl, x.device_mesh, x.placements,
+                              shape=x.shape, stride=x.stride(),
+                              run_check=False)
+
+
+def _full(x):
+    """A replicated (or partial) DTensor as the plain tensor it holds."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def _leaf(x, grad=None):
@@ -92,7 +134,7 @@ def _leaf(x, grad=None):
     return x
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, ctx=None):
     """serve_step(params, cache, batch) -> (logits [B,1,V], new cache):
     one decode step (plain torch), with no gradient recorded.  ``batch``
     is passed through whole: ``tokens`` [B,1], or for the audio family
@@ -100,12 +142,12 @@ def make_serve_step(cfg: ModelConfig):
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        return T.serve_step(params, cfg, cache, batch)
+        return T.serve_step(params, cfg, cache, batch, ctx)
 
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int):
+def make_prefill_step(cfg: ModelConfig, cache_len: int, *, ctx=None):
     """prefill_step(params, batch) -> (logits [B,1,V] of the last
     position, cache for ``cache_len`` positions): the trunk over the
     prompt, then the head on its last position only (the [B,S,V] head is
@@ -115,10 +157,10 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int):
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, _, cache = T.forward_hidden(params, cfg, batch,
-                                       collect_cache=True,
-                                       cache_len=cache_len)
-        return T._head(params, cfg, x[:, -1:]), cache
+        with sharded_scope(ctx):
+            x, _, cache = T._forward_hidden(params, cfg, batch, True,
+                                            cache_len, ctx)
+            return T._head(params, cfg, x[:, -1:], ctx), cache
 
     return prefill_step
 

@@ -6,8 +6,11 @@
 // give o [B, H, S, hd] in q's dtype:
 //
 //   s = (q . k) / sqrt(hd), masked to -1e30 unless
-//       k <= q + (T - S)            (causal; queries right-aligned)
-//       k >  q + (T - S) - window   (window > 0)
+//       k <= q + off            (causal)
+//       k >  q + off - window   (window > 0)
+//   off is the key position of query 0: T - S by default (queries
+//   right-aligned), a shard's first position when the queries are split
+//   over ranks (context parallelism) and every rank holds all T keys.
 //   o = softmax(s) v, with the running max m, sum l and acc in f32.
 //
 // Every tensor is addressed through (batch, head, row) strides with a
@@ -21,7 +24,7 @@
 // a tile of queries of one (batch, head) and loops over the key tiles
 // itself, visiting only the tiles that hold a key some row of the tile
 // may see (the causal edge and the window's lower edge cut the loop).
-// A causal row that sees no key (T < S) averages every key, as the
+// A causal row that sees no key (off < 0) averages every key, as the
 // reference's softmax over an all-masked row does.
 //
 // The dtype picks one of two routes behind flash_attention_launch.
@@ -123,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int H,
              int group, int S, int Tk, Strides qs, Strides ks, Strides vs,
-             Strides os, int causal, int window, float scale) {
+             Strides os, int causal, int window, int off, float scale) {
   constexpr int KP = HD + 4;  // padded row of the Q and K tiles
   constexpr int NC = HD / 32; // output columns per lane
   extern __shared__ __align__(16) float smem[];
@@ -133,7 +136,6 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, hk = h / group;
   const int q0 = blockIdx.x * kBQ;
-  const int off = Tk - S;  // right alignment of the queries
   const float* qb = q + b * qs.b + h * qs.h;
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
@@ -239,7 +241,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
+           Strides os, int causal, int window, int off, float scale,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   if (smem > 48 * 1024) {
@@ -251,7 +253,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_kernel<HD><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
-      H / KV, S, Tk, qs, ks, vs, os, causal, window, scale);
+      H / KV, S, Tk, qs, ks, vs, os, causal, window, off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -281,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, bf16* __restrict__ o, int H,
             int group, int S, int Tk, Strides qs, Strides ks, Strides vs,
-            Strides os, int causal, int window, float scale) {
+            Strides os, int causal, int window, int off, float scale) {
   using L = Tiles<HD>;
   constexpr int NB = L::kBlocks;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -292,7 +294,6 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the last query tiles first: theirs are the longest key ranges
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, hk = h / group;
-  const int off = Tk - S;  // right alignment of the queries
   const bf16* qb = q + b * qs.b + h * qs.h;
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
@@ -448,7 +449,7 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
-           Strides os, int causal, int window, float scale,
+           Strides os, int causal, int window, int off, float scale,
            cudaStream_t stream) {
   constexpr int smem = Tiles<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -457,7 +458,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((S + kBM - 1) / kBM, B * H);
   flash_wgmma<HD><<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, H / KV,
-      S, Tk, qs, ks, vs, os, causal, window, scale);
+      S, Tk, qs, ks, vs, os, causal, window, off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -467,33 +468,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 template <int DT, int HD>
 int route(const void* q, const void* k, const void* v, void* o, int B, int H,
           int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
-          Strides os, int causal, int window, float scale, cudaStream_t st) {
+          Strides os, int causal, int window, int off, float scale,
+          cudaStream_t st) {
   if constexpr (DT == 0)
     return launch<HD>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, causal,
-                      window, scale, st);
+                      window, off, scale, st);
   else
     return tc::launch<HD>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, causal,
-                        window, scale, st);
+                        window, off, scale, st);
 }
 
 template <int DT>
 int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 void* o, int B, int H, int KV, int S, int Tk, Strides qs,
                 Strides ks, Strides vs, Strides os, int causal, int window,
-                float scale, cudaStream_t st) {
+                int off, float scale, cudaStream_t st) {
   switch (hd) {
     case 32:
       return route<DT, 32>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                           causal, window, scale, st);
+                           causal, window, off, scale, st);
     case 64:
       return route<DT, 64>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                           causal, window, scale, st);
+                           causal, window, off, scale, st);
     case 128:
       return route<DT, 128>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                            causal, window, scale, st);
+                            causal, window, off, scale, st);
     case 256:
       return route<DT, 256>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                            causal, window, scale, st);
+                            causal, window, off, scale, st);
     default:
       return -1;
   }
@@ -534,8 +536,8 @@ extern "C" int flash_attention_launch(
     int KV, int S, int T, int hd, int dtype, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, int causal, int window, float scale,
-    int device, void* stream) {
+    long long osh, long long oss, int causal, int window, int off,
+    float scale, int device, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   const Strides qs{qsb, qsh, qss}, ks{ksb, ksh, kss}, vs{vsb, vsh, vss},
       os{osb, osh, oss};
@@ -547,9 +549,9 @@ extern "C" int flash_attention_launch(
   cudaStream_t st = (cudaStream_t)stream;
   const int rc =
       dtype == 0 ? dispatch_hd<0>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                                  os, causal, window, scale, st)
+                                  os, causal, window, off, scale, st)
                  : dispatch_hd<1>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                                  os, causal, window, scale, st);
+                                  os, causal, window, off, scale, st);
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (rc == 0 && back != cudaSuccess) return (int)back;

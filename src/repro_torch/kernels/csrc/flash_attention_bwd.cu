@@ -8,8 +8,10 @@
 // [B, KV, T, hd] (query head h reads key head h / (H / KV)) and dO
 // [B, H, S, hd], f32 or bf16, give dq, dk, dv in the inputs' dtype:
 //
-//   s  = (q . k) * scale, masked unless k <= q + (T - S) (causal, queries
-//        right-aligned) and k > q + (T - S) - window (window > 0)
+//   s  = (q . k) * scale, masked unless k <= q + off (causal) and
+//        k > q + off - window (window > 0); off is the key position of
+//        query 0, T - S by default (queries right-aligned), a shard's
+//        first position when the queries are split over ranks
 //   P  = softmax(s) over the visible keys           (f32)
 //   dP = dO . v,  D = rowsum(P * dP),  dS = P (dP - D)
 //   dq = scale dS k,  dk = scale dS^T q,  dv = P^T dO
@@ -19,7 +21,7 @@
 // a bf16 O is rounded, and D must be the f32 function's (its error
 // multiplies every dS of the row).  No atomics, every sum in a fixed
 // order, so two calls on one input give one bit pattern.  A causal row
-// that sees no key (T < S) is refused by the Python wrapper: the
+// that sees no key (off < 0) is refused by the Python wrapper: the
 // forward's softmax over an all-masked row has no gradient formed here.
 // The bound counts 2 hd FLOPs a visible (query, key) pair for each of s,
 // dP, dq, dk and dv (10 hd); at the recurrentgemma-2b train step (B 16,
@@ -202,7 +204,7 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             T* __restrict__ dq, float* __restrict__ stats, int H, int group,
             int S, int Tk, Strides qs, Strides ks, Strides vs, Strides dos,
-            Strides dqs, int causal, int window, float scale) {
+            Strides dqs, int causal, int window, int off, float scale) {
   constexpr int KP = HD + 4;
   constexpr int RPT = kBT * HD / kThreads;   // rows of dq a thread
   extern __shared__ __align__(16) float smem[];
@@ -214,7 +216,6 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, hk = h / group;
   const int q0 = blockIdx.x * kBT;
-  const int off = Tk - S;
   const T* qb = q + b * qs.b + h * qs.h;
   const T* dob = dout + b * dos.b + h * dos.h;
   const T* kb = k + b * ks.b + hk * ks.h;
@@ -331,7 +332,7 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
              const float* __restrict__ stats, T* __restrict__ dk,
              T* __restrict__ dv, int H, int KV, int group, int S, int Tk,
              Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
-             Strides dvs, int causal, int window, float scale) {
+             Strides dvs, int causal, int window, int off, float scale) {
   constexpr int KP = HD + 4;
   constexpr int KPT = kBT * HD / kThreads;   // keys of dk, dv a thread
   extern __shared__ __align__(16) float smem[];
@@ -347,7 +348,6 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bk = blockIdx.y, b = bk / KV, hk = bk - b * KV;
   const int k0 = blockIdx.x * kBT;
-  const int off = Tk - S;
   const long long n = (long long)gridDim.y * group * S;   // B * H * S
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
@@ -425,6 +425,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* stats, int B, int H, int KV,
            int S, int Tk, Strides qs, Strides ks, Strides vs, Strides dos,
            Strides dqs, Strides dks, Strides dvs, int causal, int window,
+           int off,
            float scale, cudaStream_t st) {
   constexpr size_t s1 = dq_smem<HD>(), s2 = dkv_smem<HD>();
   cudaError_t err;
@@ -441,12 +442,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
           *dop = (const T*)dout;
   attn_bwd_dq<T, HD><<<dim3((S + kBT - 1) / kBT, B * H), kThreads, s1, st>>>(
       qp, kp, vp, dop, (T*)dq, stats, H, group, S, Tk, qs, ks, vs, dos, dqs,
-      causal, window, scale);
+      causal, window, off, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   attn_bwd_dkv<T, HD><<<dim3((Tk + kBT - 1) / kBT, B * KV), kThreads, s2,
                         st>>>(qp, kp, vp, dop, stats, (T*)dk, (T*)dv, H, KV,
                               group, S, Tk, qs, ks, vs, dos, dks, dvs, causal,
-                              window, scale);
+                              window, off, scale);
   return (int)cudaGetLastError();
 }
 
@@ -455,13 +456,13 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 const void* dout, void* dq, void* dk, void* dv, float* stats,
                 int B, int H, int KV, int S, int Tk, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dqs, Strides dks,
-                Strides dvs, int causal, int window, float scale,
+                Strides dvs, int causal, int window, int off, float scale,
                 cudaStream_t st) {
 #define ATTN_BWD_HD(HD)                                                      \
   case HD:                                                                   \
     return launch<T, HD>(q, k, v, dout, dq, dk, dv, stats, B, H, KV, S, Tk,  \
                          qs, ks, vs, dos, dqs, dks, dvs, causal, window,     \
-                         scale, st);
+                         off, scale, st);
   switch (hd) {
     ATTN_BWD_HD(32)
     ATTN_BWD_HD(64)
@@ -565,7 +566,7 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dq, float* __restrict__ stats, int H,
                   int group, int S, int Tk, Strides qs, Strides ks,
                   Strides vs, Strides dos, Strides dqs, int causal,
-                  int window, float scale) {
+                  int window, int off, float scale) {
   using L = BwdTiles<HD>;
   constexpr int NB = L::kBlocks;
   constexpr int NH = NB > 1 ? NB / 2 : 1;  // dq column blocks a warpgroup
@@ -583,7 +584,6 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H, hk = h / group;
   // the last query tiles first: theirs are the longest key ranges
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;
-  const int off = Tk - S;  // right alignment of the queries
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
@@ -759,7 +759,7 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    bf16* __restrict__ dv, float* __restrict__ part, int H,
                    int KV, int group, int parts, int S, int Tk, Strides qs,
                    Strides ks, Strides vs, Strides dos, Strides dks,
-                   Strides dvs, int causal, int window, float scale) {
+                   Strides dvs, int causal, int window, int off, float scale) {
   using L = BwdTiles<HD>;
   constexpr int NB = L::kBlocks;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -777,7 +777,6 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // the first key tiles first: under the causal mask theirs are the
   // longest query ranges
   const int k0 = blockIdx.y * kB;
-  const int off = Tk - S;
   const int hpp = group / parts;        // query heads of this part
   const int h0 = hk * group + p * hpp;  // the first of them
   const long long nbk = gridDim.x / parts;  // B * KV
@@ -934,7 +933,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* stats, float* part, int B,
            int H, int KV, int S, int Tk, int parts, Strides qs, Strides ks,
            Strides vs, Strides dos, Strides dqs, Strides dks, Strides dvs,
-           int causal, int window, float scale, cudaStream_t st) {
+           int causal, int window, int off, float scale, cudaStream_t st) {
   constexpr int smem = BwdTiles<HD>::kSmem;
   cudaError_t err;
   if ((err = cudaFuncSetAttribute(attn_bwd_dq_wgmma<HD>,
@@ -950,12 +949,13 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   attn_bwd_dq_wgmma<HD><<<dim3(B * H, (S + kB - 1) / kB), kThreadsTC, smem,
                           st>>>(qp, kp, vp, dop, (bf16*)dq, stats, H, H / KV,
                                 S, Tk, qs, ks, vs, dos, dqs, causal, window,
+                                off,
                                 scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   attn_bwd_dkv_wgmma<HD><<<dim3(B * KV * parts, (Tk + kB - 1) / kB),
                            kThreadsTC, smem, st>>>(
       qp, kp, vp, dop, stats, (bf16*)dk, (bf16*)dv, part, H, KV, H / KV,
-      parts, S, Tk, qs, ks, vs, dos, dks, dvs, causal, window, scale);
+      parts, S, Tk, qs, ks, vs, dos, dks, dvs, causal, window, off, scale);
   if ((err = cudaGetLastError()) != cudaSuccess || parts == 1)
     return (int)err;
   const long long n = (long long)B * KV * Tk * HD;
@@ -969,13 +969,14 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
                 const void* dout, void* dq, void* dk, void* dv, float* stats,
                 float* part, int B, int H, int KV, int S, int Tk, int parts,
                 Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-                Strides dks, Strides dvs, int causal, int window, float scale,
+                Strides dks, Strides dvs, int causal, int window, int off,
+                float scale,
                 cudaStream_t st) {
 #define ATTN_BWD_TC_HD(HD)                                                   \
   case HD:                                                                   \
     return launch<HD>(q, k, v, dout, dq, dk, dv, stats, part, B, H, KV, S,  \
                       Tk, parts, qs, ks, vs, dos, dqs, dks, dvs, causal,     \
-                      window, scale, st);
+                      window, off, scale, st);
   switch (hd) {
     ATTN_BWD_TC_HD(32)
     ATTN_BWD_TC_HD(64)
@@ -1002,7 +1003,8 @@ extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* stats, void* partial, int B, int H, int KV,
     int S, int T, int hd, int dtype, int parts, const long long* strides,
-    int causal, int window, float scale, int device, void* stream) {
+    int causal, int window, int off, float scale, int device,
+    void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   if (KV <= 0 || H % KV || parts < 1 || (H / KV) % parts ||
       (dtype == 0 && parts != 1) || (parts > 1 && partial == nullptr))
@@ -1021,11 +1023,11 @@ extern "C" int flash_attention_bwd_launch(
       dtype == 0
           ? dispatch_hd<float>(hd, q, k, v, dout, dq, dk, dv, (float*)stats,
                                B, H, KV, S, T, s[0], s[1], s[2], s[3], s[4],
-                               s[5], s[6], causal, window, scale, st)
+                               s[5], s[6], causal, window, off, scale, st)
           : tc::dispatch_hd(hd, q, k, v, dout, dq, dk, dv, (float*)stats,
                             (float*)partial, B, H, KV, S, T, parts, s[0],
                             s[1], s[2], s[3], s[4], s[5], s[6], causal,
-                            window, scale, st);
+                            window, off, scale, st);
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (rc == 0 && back != cudaSuccess) return (int)back;

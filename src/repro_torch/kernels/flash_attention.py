@@ -47,7 +47,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _launcher():
     fn = load_library("flash_attention.cu").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2 \
+        + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 3 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -57,7 +57,7 @@ def _launcher():
 def _bwd_launcher():
     fn = load_library("flash_attention_bwd.cu").flash_attention_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p] + [ctypes.c_int] * 2 \
+        + [ctypes.c_void_p] + [ctypes.c_int] * 3 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -119,8 +119,19 @@ def gqa_parts(B: int, KV: int, T: int, group: int, sms: int) -> int:
     return group
 
 
-def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
+def _mask_key(causal, window, q_offset, S, T):
+    """The launch counters' mask key: (causal, window), and the query
+    offset where it is not the default T - S."""
+    key = (int(causal), int(window))
+    return key if q_offset == T - S else key + (int(q_offset),)
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
+                         q_offset: int | None = None):
+    """``q_offset``: the key position of query 0 (the causal edge is k <=
+    q + q_offset); T - S by default, queries right-aligned."""
     B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_cuda")
+    q_offset = T - S if q_offset is None else int(q_offset)
     if q.dtype == torch.bfloat16:
         _require_tc_aligned((q, k, v), "q, k, v")
     out = torch.empty((B, S, H, hd), dtype=q.dtype,
@@ -131,29 +142,35 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0):
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), B, H, KV, S, T, hd, DTYPES[q.dtype],
                       *(x.stride(i) for x in (q, k, v, out) for i in range(3)),
-                      int(causal), int(window), 1.0 / math.sqrt(hd), device,
+                      int(causal), int(window), q_offset,
+                      1.0 / math.sqrt(hd), device,
                       torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"attention launch failed: cudaError {err}")
-    count_launch("attention", q.shape, k.shape, (int(causal), int(window)))
+    count_launch("attention", q.shape, k.shape,
+                 _mask_key(causal, window, q_offset, S, T))
     return out
 
 
 def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
-                             window: int = 0, parts: int | None = None):
-    """Gradients of ``flash_attention_cuda(q, k, v)`` for the output's
-    gradient ``do`` [B, H, S, hd] -> (dq, dk, dv) in the inputs' dtype
-    (each strided as its input, when that is dense).  ``parts`` (bf16
-    only, a divisor of H / KV) overrides ``gqa_parts``'s choice."""
+                             window: int = 0, parts: int | None = None,
+                             q_offset: int | None = None):
+    """Gradients of ``flash_attention_cuda(q, k, v, q_offset=...)`` for
+    the output's gradient ``do`` [B, H, S, hd] -> (dq, dk, dv) in the
+    inputs' dtype (each strided as its input, when that is dense).
+    ``parts`` (bf16 only, a divisor of H / KV) overrides ``gqa_parts``'s
+    choice."""
     B, H, KV, S, T, hd = _check(q, k, v, "flash_attention_bwd_cuda")
+    q_offset = T - S if q_offset is None else int(q_offset)
     if not (isinstance(do, torch.Tensor) and do.is_cuda) \
             or do.shape != q.shape or do.dtype != q.dtype \
             or do.stride(3) != 1 or do.device != q.device:
         raise ValueError("flash_attention_bwd_cuda needs do of q's shape, "
                          "dtype and device, with a contiguous last axis")
-    if causal and T < S:
-        raise ValueError(f"attention backward: with causal and T {T} < S "
-                         f"{S} the first rows see no key")
+    if causal and q_offset < 0:
+        raise ValueError(f"attention backward: with causal and query "
+                         f"offset {q_offset} (T {T}, S {S}) the first rows "
+                         f"see no key")
     device = q.get_device()
     group = H // KV
     if q.dtype == torch.bfloat16:
@@ -177,12 +194,12 @@ def flash_attention_bwd_cuda(q, k, v, do, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
         None if partial is None else partial.data_ptr(), B, H, KV, S, T, hd,
-        DTYPES[q.dtype], parts, strides, int(causal), int(window),
+        DTYPES[q.dtype], parts, strides, int(causal), int(window), q_offset,
         1.0 / math.sqrt(hd), device,
         torch._C._cuda_getCurrentRawStream(device))
     if err != 0:
         raise RuntimeError(f"attention backward launch failed: cudaError "
                            f"{err}")
     count_launch("attention_bwd", q.shape, k.shape,
-                 (int(causal), int(window)))
+                 _mask_key(causal, window, q_offset, S, T))
     return dq, dk, dv

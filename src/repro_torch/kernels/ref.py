@@ -15,10 +15,11 @@ import torch.nn.functional as F
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  scale: float | None = None):
+                  scale: float | None = None, q_offset: int | None = None):
     """q [B,H,S,hd], k/v [B,KV,T,hd] with KV dividing H (query head h
     reads key head h // (H/KV)) -> [B,H,S,hd] in q's dtype.  Dense masked
-    softmax in f32; queries are right-aligned when T > S."""
+    softmax in f32; query i sits at key position i + q_offset, T - S by
+    default (queries right-aligned when T > S)."""
     B, H, S, hd = q.shape
     T = k.shape[2]
     G = H // k.shape[1]
@@ -30,18 +31,20 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                           k.to(torch.float32)) * scale
     qi = torch.arange(S, device=q.device)[:, None]
     ki = torch.arange(T, device=q.device)[None, :]
+    off = T - S if q_offset is None else q_offset
     ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
-        ok &= ki <= qi + (T - S)
+        ok &= ki <= qi + off
     if window > 0:
-        ok &= ki > qi + (T - S) - window
+        ok &= ki > qi + off - window
     scores = torch.where(ok, scores, -1e30)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p,
                         v.to(torch.float32)).to(q.dtype)
 
 
-def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0):
+def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0,
+                      q_offset: int | None = None):
     """Gradients of ``attention_ref(q, k, v)`` for the output's gradient
     ``do`` -> (dq, dk, dv) in the inputs' dtype: autograd of the dense
     version on the inputs cast to f32, each gradient rounded to the
@@ -51,7 +54,8 @@ def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0):
     with torch.enable_grad():
         leaves = [x.detach().to(torch.float32).requires_grad_(True)
                   for x in (q, k, v)]
-        out = attention_ref(*leaves, causal=causal, window=window)
+        out = attention_ref(*leaves, causal=causal, window=window,
+                            q_offset=q_offset)
         grads = torch.autograd.grad(out, leaves, do.to(torch.float32))
     return tuple(g.to(q.dtype) for g in grads)
 

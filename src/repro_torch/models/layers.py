@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.sharding import (ShardingCtx, as_dtensor, constrain,
+                                  is_dtensor, matmul, resolve_spec)
 
 # ---------------------------------------------------------------------------
 # init helpers (drawn from an explicit generator, on its device)
@@ -150,10 +152,10 @@ def _mask_bias(q_pos, k_pos, window: int, causal: bool):
     ok = torch.ones(torch.broadcast_shapes(qp.shape, kp.shape),
                     dtype=torch.bool, device=q_pos.device)
     if causal:
-        ok &= kp <= qp
+        ok = ok & (kp <= qp)
     if window > 0:
-        ok &= kp > (qp - window)
-    ok &= kp >= 0   # slots with pos -1 are invalid (ring buffer)
+        ok = ok & (kp > (qp - window))
+    ok = ok & (kp >= 0)   # slots with pos -1 are invalid (ring buffer)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     return torch.where(ok, zero, -1e30)
 
@@ -171,14 +173,13 @@ def _attend(q, k, v, bias):
 
 def _project(x, w):
     """x [B,S,d] @ w [d,H,hd] -> contiguous [B,S,H,hd]."""
-    B, S, d = x.shape
-    return (x.reshape(B * S, d) @ w.reshape(d, -1)).reshape(
-        B, S, w.shape[1], w.shape[2])
+    return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
 def multihead_attention(params, cfg: ModelConfig, x, *, kv_x=None,
                         q_pos=None, causal=True, window=0, rope_theta=None,
-                        cache=None, cache_fixed_kv=False):
+                        cache=None, cache_fixed_kv=False,
+                        ctx: Optional[ShardingCtx] = None):
     """GQA attention.  x [B,S,d]; q_pos [B or 1, S] int; ``kv_x``
     [B,T,d] (default x) feeds the keys and values (cross attention).
 
@@ -193,8 +194,17 @@ def multihead_attention(params, cfg: ModelConfig, x, *, kv_x=None,
     ``cache_fixed_kv`` it attends over the cached keys and values {'k',
     'v'} (cross attention's, from the prefill) and writes nothing.
     Returns (out [B,S,d], new_cache or None, (k, v) after norm and
-    rope)."""
-    B, S, d = x.shape
+    rope).
+
+    Under ``ctx`` (the reference's two regimes): context-parallel
+    (``tp`` False, or ``hybrid``) with S > 1 shards the queries over the
+    sequence ("sp") and keeps the keys and values whole; else the heads
+    go over "model" and, in decode, the cache length over "seq".  The
+    reference expands K/V to H heads before it constrains them; here the
+    kernel keeps GQA, so the key heads are sharded with their query heads
+    where KV divides the model axis, and expanded to H only where it
+    does not."""
+    B, S = x.shape[:2]
     H = cfg.num_heads
     q = _project(x, params["wq"])
     if "bq" in params:
@@ -221,17 +231,18 @@ def multihead_attention(params, cfg: ModelConfig, x, *, kv_x=None,
     new_cache = None
     if cache is not None and cache_fixed_kv:
         new_cache = cache
+    elif cache is not None:
+        k, v, slot_pos = _write_slot(cache, k, v, q_pos)
+        new_cache = {"k": k, "v": v, "slot_pos": slot_pos,
+                     "next_slot": (cache["next_slot"] + 1) % k.shape[1]}
+    kv = (k, v)          # after norm and rope, before any expansion
+    if ctx is not None and ctx.mesh is not None:
+        q, k, v = _constrain_qkv(q, k, v, ctx, H)
+    if cache is not None and cache_fixed_kv:
         bias = torch.zeros((B, S, k.shape[1]), dtype=torch.float32,
                            device=x.device)
         out = _attend(q, _expand_kv(k, H), _expand_kv(v, H), bias)
     elif cache is not None:
-        slot = cache["next_slot"].reshape(1).long()
-        k = cache["k"].index_copy(1, slot, k)
-        v = cache["v"].index_copy(1, slot, v)
-        slot_pos = cache["slot_pos"].index_copy(
-            0, slot, q_pos.reshape(-1)[:1].to(torch.int32))
-        new_cache = {"k": k, "v": v, "slot_pos": slot_pos,
-                     "next_slot": (cache["next_slot"] + 1) % k.shape[1]}
         bias = _mask_bias(q_pos.expand(B, S).to(torch.int32),
                           slot_pos[None, :].expand(B, -1), window, causal)
         out = _attend(q, _expand_kv(k, H), _expand_kv(v, H), bias)
@@ -240,11 +251,43 @@ def multihead_attention(params, cfg: ModelConfig, x, *, kv_x=None,
                             v.transpose(1, 2), causal=causal,
                             window=window).transpose(1, 2)
     wo = params["wo"]
-    out = (out.reshape(B * S, -1) @ wo.reshape(-1, wo.shape[-1])).reshape(
-        B, S, -1)
+    out = matmul(out.flatten(2), wo.reshape(-1, wo.shape[-1]))
     if "gate" in params:
         out = out * torch.tanh(params["gate"]).to(out.dtype)
-    return out, new_cache, (k, v)
+    return out, new_cache, kv
+
+
+def _write_slot(cache, k, v, q_pos):
+    """The decode step's ring-buffer write at ``next_slot``, as an
+    elementwise select over the buffer (a new buffer, as an out-of-place
+    ``index_copy`` would make), so that a buffer split over its length
+    takes it on every rank."""
+    n = cache["k"].shape[1]
+    at = torch.arange(n, device=k.device) == cache["next_slot"]
+    k = torch.where(at[None, :, None, None], k, cache["k"])
+    v = torch.where(at[None, :, None, None], v, cache["v"])
+    pos = q_pos.reshape(-1)[:1].to(torch.int32)
+    return k, v, torch.where(at, pos, cache["slot_pos"])
+
+
+def _constrain_qkv(q, k, v, ctx: ShardingCtx, H: int):
+    """q [B,S,H,hd], k/v [B,T,KV,hd] at the reference's placements
+    (``multihead_attention``'s docstring)."""
+    S = q.shape[1]
+    if (not ctx.tp or ctx.hybrid) and S > 1:
+        q = constrain(q, ctx, "batch", "sp", None, None)
+        k = constrain(k, ctx, "batch", None, None, None)
+        v = constrain(v, ctx, "batch", None, None, None)
+        return q, k, v
+    q = constrain(q, ctx, "batch", None, "model", None)
+    heads = resolve_spec(q.shape, ctx, ("batch", None, "model", None))[2]
+    if heads is not None and k.shape[2] % ctx.axis_size(
+            (heads,) if isinstance(heads, str) else heads):
+        k, v = _expand_kv(k, H), _expand_kv(v, H)
+    seq = "seq" if S == 1 else None
+    k = constrain(k, ctx, "batch", seq, "model", None)
+    v = constrain(v, ctx, "batch", seq, "model", None)
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -260,26 +303,91 @@ def swiglu_init(gen, d, dff, dtype, out=None):
     }
 
 
-def swiglu(params, x, act=F.silu):
-    h = act(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+def swiglu(params, x, act=F.silu, ctx: Optional[ShardingCtx] = None):
+    """Under ``ctx``: d_ff column-parallel with TP (not hybrid), else
+    token-parallel over the model axis (the reference's ``swiglu``)."""
+    h = act(matmul(x, params["w_gate"])) * matmul(x, params["w_up"])
+    if ctx is not None and ctx.tp and not ctx.hybrid:
+        h = constrain(h, ctx, "batch", None, "sp")
+    else:
+        h = constrain(h, ctx, "batch", "sp", None)
+    return matmul(h, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
 # losses
 
 
-def softmax_cross_entropy(logits, targets, mask=None, label_smoothing=0.0):
-    """logits [..., C]; targets int [...]. Returns the mean over mask."""
+def _token_losses(logits, targets, label_smoothing):
+    """Each position's CE in f32: logsumexp minus the target's logit (a
+    one-hot select; for a DTensor ``_ce_terms_sharded``)."""
     logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    onehot = (torch.arange(logits.shape[-1], device=logits.device)
-              == targets[..., None])
-    true_logit = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    if not is_dtensor(logits):
+        logz = torch.logsumexp(logits, dim=-1)
+        onehot = (torch.arange(logits.shape[-1], device=logits.device)
+                  == targets[..., None])
+        true_logit = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    else:
+        logz, true_logit = _ce_terms_sharded(logits, targets)
     loss = logz - true_logit
     if label_smoothing:
         loss = (1 - label_smoothing) * loss + label_smoothing * (
             logz - logits.mean(dim=-1))
+    return loss
+
+
+def _ce_terms_sharded(logits, targets):
+    """(logsumexp, the target's logit) of DTensor logits [..., C] whose C
+    may be split over mesh dims (vocab-parallel): each rank reduces its
+    own classes (a max, then its sum of exp(x - max)) and gathers the
+    targets in its class range, and the partial results are combined
+    over the mesh dims that split C.  DTensor's own logsumexp gathers C
+    whole (a [B, chunk, V] f32 copy a rank), and its one-hot or gather
+    forms a global-batch tensor or fails when the batch is split too.
+    The split sequence is ``torch.logsumexp``'s: log(sum(exp(x - m))) +
+    m, with m = 0 where it is infinite; with C whole it is
+    ``torch.logsumexp`` itself (its backward too, so a one-rank mesh
+    gives the unsharded loss's bits)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    mesh = logits.device_mesh
+    c = logits.ndim - 1
+    if any(isinstance(p, Partial) for p in logits.placements):
+        logits = logits.redistribute(mesh, [
+            Replicate() if isinstance(p, Partial) else p
+            for p in logits.placements])
+    split = [isinstance(p, Shard) and p.dim == c for p in logits.placements]
+    tpl = [Replicate() if sp else p
+           for sp, p in zip(split, logits.placements)]
+
+    def combined(x, op):
+        out = [Partial(op) if sp else p for sp, p in zip(split, tpl)]
+        return DTensor.from_local(x, mesh, out, shape=targets.shape,
+                                  stride=targets.stride(),
+                                  run_check=False).redistribute(mesh, tpl)
+
+    local = logits.to_local()
+    if any(sp and mesh.size(i) > 1 for i, sp in enumerate(split)):
+        m = combined(local.detach().amax(-1), "max").to_local()
+        m = m.masked_fill(m.abs() == float("inf"), 0)[..., None]
+        logz = torch.log(combined(torch.exp(local - m).sum(-1), "sum")) \
+            + DTensor.from_local(m[..., 0], mesh, tpl, shape=targets.shape,
+                                 stride=targets.stride(), run_check=False)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)    # C whole on every rank
+    t = as_dtensor(targets, mesh).redistribute(mesh, tpl).to_local()
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    idx = t - offset[c]
+    ok = (idx >= 0) & (idx < local.shape[-1])
+    val = torch.gather(local, -1, torch.where(ok, idx, 0)[..., None])[..., 0]
+    return logz, combined(torch.where(ok, val, 0.0), "sum")
+
+
+def softmax_cross_entropy(logits, targets, mask=None, label_smoothing=0.0):
+    """logits [..., C]; targets int [...]. Returns the mean over mask."""
+    loss = _token_losses(logits, targets, label_smoothing)
     if mask is None:
         return loss.mean()
     mask = mask.to(torch.float32)
@@ -289,15 +397,7 @@ def softmax_cross_entropy(logits, targets, mask=None, label_smoothing=0.0):
 def softmax_cross_entropy_sums(logits, targets, mask=None,
                                label_smoothing=0.0):
     """(weighted loss sum, weight sum): the chunked CE's building block."""
-    logits = logits.to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    onehot = (torch.arange(logits.shape[-1], device=logits.device)
-              == targets[..., None])
-    true_logit = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
-    loss = logz - true_logit
-    if label_smoothing:
-        loss = (1 - label_smoothing) * loss + label_smoothing * (
-            logz - logits.mean(dim=-1))
+    loss = _token_losses(logits, targets, label_smoothing)
     mask = (torch.ones_like(loss) if mask is None
             else mask.to(torch.float32))
     return (loss * mask).sum(), mask.sum()

@@ -1,7 +1,18 @@
 """Mixture-of-Experts FFN: top-k routing with a sort-based, capacity-bounded
-dispatch (counterpart of ``repro/models/moe.py``, its path with every
-expert local; the expert-parallel ``shard_map`` path waits for the
-sharding port).
+dispatch (counterpart of ``repro/models/moe.py``).
+
+Without a mesh every expert is local.  Under a ``ShardingCtx`` whose
+model axis divides the experts, the layer runs expert-parallel (the
+reference's ``shard_map`` path): the tokens are split over the batch
+axes and whole over "model"; each model rank routes its tokens over all
+experts, runs ``_moe_local`` on its E / n_model experts (assignments to
+other experts go to a scratch bin) with the capacity of its own tokens,
+after its expert weights are all-gathered over the FSDP axes they are
+stored sharded on; ``y`` is summed over "model" and the load-balance
+statistics are averaged over the batch axes.  The collectives are
+DTensor redistributions (autograd carries them backward).  Where the
+model axis does not divide the experts, the layer falls back to every
+expert local on the whole batch, as the reference does.
 
 Routing decisions follow the JAX package's exactly: the router logits are
 f32 sums of the products of x and the router in x's dtype (never rounded
@@ -32,6 +43,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+from repro_torch.sharding import (as_dtensor, matmul, partial_where_split,
+                                  resolve_spec, spec_to_placements)
 
 
 def moe_params_init(gen, cfg: ModelConfig, dtype, out=None):
@@ -86,13 +99,21 @@ def _positions_in_expert(flat_experts, num_experts):
     [E])."""
     n = flat_experts.shape[0]
     order = torch.argsort(flat_experts, stable=True)
-    group_sizes = torch.bincount(flat_experts, minlength=num_experts)
+    group_sizes = _counts(flat_experts, num_experts, torch.long)
     group_start = torch.cumsum(group_sizes, 0) - group_sizes
     pos_sorted = (torch.arange(n, device=flat_experts.device)
                   - group_start[flat_experts[order]])
     pos = torch.empty_like(pos_sorted)
     pos[order] = pos_sorted
     return pos, group_sizes
+
+
+def _counts(idx, n: int, dtype):
+    """How often each of 0..n-1 occurs in ``idx`` [N], in ``dtype`` (a
+    sum of ones: integers, exact and in any order the same; unlike
+    ``bincount`` it has a meta kernel, for the dry run)."""
+    return torch.zeros((n,), dtype=dtype, device=idx.device).index_add_(
+        0, idx, torch.ones(idx.shape, dtype=dtype, device=idx.device))
 
 
 def _expert_ffn(params, x_buf):
@@ -106,8 +127,8 @@ def _router_logits(params, x):
     """x [T,d] against the router cast to x's dtype, summed in f32: the
     products of two bf16 numbers are exact in f32, so this is the JAX
     package's ``preferred_element_type=f32`` product."""
-    return x.to(torch.float32) @ params["router"].to(x.dtype).to(
-        torch.float32)
+    return matmul(x.to(torch.float32),
+                  params["router"].to(x.dtype).to(torch.float32))
 
 
 class _Dispatch(torch.autograd.Function):
@@ -162,26 +183,36 @@ class _Combine(torch.autograd.Function):
         return dy_flat, dw, None, None, None
 
 
-def _moe_local(params, cfg: ModelConfig, x, capacity):
-    """Dispatch and expert compute over all experts for tokens x [T,d].
-    Returns (y [T,d], me [E], ce [E]), as the JAX package's."""
+def _moe_local(params, cfg: ModelConfig, x, capacity, expert_lo: int = 0,
+               num_local: int | None = None):
+    """Dispatch and expert compute over experts [expert_lo, expert_lo +
+    num_local) (all E by default; ``params``' expert tables hold just
+    those) for tokens x [T,d].  Returns (y [T,d], me [E], ce [E]), as the
+    JAX package's; y sums the local experts' outputs only."""
     T, d = x.shape
     k, E = cfg.experts_per_token, cfg.num_experts
+    nl = E if num_local is None else num_local
     weights, experts, probs = top_k_routing(_router_logits(params, x), k)
 
     flat_e = experts.reshape(-1)                               # [N = T k]
-    pos, _ = _positions_in_expert(flat_e, E)
-    fits = pos < capacity
+    local_e = flat_e - expert_lo
+    is_local = (local_e >= 0) & (local_e < nl)
+    # assignments to other ranks' experts go to a scratch bin nl, so they
+    # never take an arrival rank of a local expert
+    pos, _ = _positions_in_expert(torch.where(is_local, local_e, nl),
+                                  nl + 1)
+    fits = is_local & (pos < capacity)
     # the source token of each (expert, slot); an assignment past its
-    # expert's capacity writes the scratch slot n_slots, which is cut off
-    n_slots = E * capacity
-    slot_flat = torch.where(fits, flat_e * capacity + pos, n_slots)
+    # expert's capacity (or another rank's) writes the scratch slot
+    # n_slots, which is cut off
+    n_slots = nl * capacity
+    slot_flat = torch.where(fits, local_e * capacity + pos, n_slots)
     token_idx = torch.arange(T * k, device=x.device) // k
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
     src[slot_flat] = token_idx
     src = src[:n_slots]
     slot_2d = slot_flat.reshape(T, k)
-    x_buf = _Dispatch.apply(x, src, slot_2d).reshape(E, capacity, d)
+    x_buf = _Dispatch.apply(x, src, slot_2d).reshape(nl, capacity, d)
 
     y_flat = _expert_ffn(params, x_buf).reshape(n_slots, d)
 
@@ -193,20 +224,96 @@ def _moe_local(params, cfg: ModelConfig, x, capacity):
 
     # switch-style load-balance statistics over all experts
     me = probs.mean(dim=0)
-    ce = torch.bincount(flat_e, minlength=E).to(torch.float32) / (T * k)
+    ce = _counts(flat_e, E, torch.float32) / (T * k)
     return y, me, ce
 
 
-def moe_ffn(params, cfg: ModelConfig, x):
+def moe_ffn(params, cfg: ModelConfig, x, ctx=None):
     """x [B,S,d] -> (y [B,S,d], aux loss f32 scalar)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    capacity = _capacity(B * S, k, E, cfg.capacity_factor)
-    y, me, ce = _moe_local(params, cfg, x.reshape(B * S, d), capacity)
+    if ctx is None or ctx.mesh is None:
+        capacity = _capacity(B * S, k, E, cfg.capacity_factor)
+        y, me, ce = _moe_local(params, cfg, x.reshape(B * S, d), capacity)
+        y = y.reshape(B, S, d)
+    else:
+        y, me, ce = _moe_sharded(params, cfg, x, ctx)
     aux = cfg.router_aux_loss * E * torch.sum(me * ce)
-    y = y.reshape(B, S, d)
     if "shared" in params:
-        y = y + swiglu(params["shared"], x)
+        y = y + swiglu(params["shared"], x, ctx=ctx)
     if "dense_residual" in params:
-        y = y + swiglu(params["dense_residual"], x)
+        y = y + swiglu(params["dense_residual"], x, ctx=ctx)
     return y, aux
+
+
+def _moe_sharded(params, cfg: ModelConfig, x, ctx):
+    """The layer on DTensors (module docstring) -> (y [B,S,d], me, ce) as
+    DTensors: y split over the batch axes, me and ce replicated.
+
+    Each rank's local computation covers its own tokens (and, expert-
+    parallel, its own experts), so the local operands it reads whole are
+    taken with ``Partial`` gradient placements there: their gradients
+    are summed over the ranks that split the work.  ``me`` is the mean of
+    the router's probabilities over every token: expert-parallel, formed
+    on the DTensors (autograd's mean over the split batch); with every
+    expert local, each rank's own (the same on every rank, and the
+    unsharded layer's bits on a one-rank mesh).  ``ce`` counts
+    assignments and carries no gradient."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ctx.mesh
+    names = list(mesh.mesh_dim_names)
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    n_model = ctx.model_axis_size
+    if E % max(n_model, 1) != 0:
+        n_model = 1   # replicated experts for odd reductions
+    rep = [Replicate()] * mesh.ndim
+    x = as_dtensor(x, mesh)
+    mi = names.index(ctx.model_axis)
+    if n_model == 1:
+        # every expert local on the whole batch (the reference's
+        # single-program path): tokens and tables gathered, the same
+        # computation on every rank
+        tok = tuple(rep)
+    else:
+        tok = spec_to_placements(
+            mesh, resolve_spec(x.shape, ctx, ("batch", None, None)))
+    split = list(tok)                  # how the local work is divided
+    if n_model > 1:
+        split[mi] = Shard(0)
+    xs = x.redistribute(mesh, tok)
+    xl = xs.to_local(grad_placements=partial_where_split(split, tok))
+    tokens = xl.shape[0] * S
+    capacity = _capacity(tokens, k, E, cfg.capacity_factor)
+
+    def local(w, pl):
+        return as_dtensor(w, mesh).redistribute(mesh, pl).to_local(
+            grad_placements=partial_where_split(split, pl))
+
+    experts = list(rep)
+    if n_model > 1:
+        experts[mi] = Shard(0)
+    w = {"router": local(params["router"], rep)}
+    for name in ("w_gate", "w_up", "w_down"):
+        w[name] = local(params[name], experts)
+    lo, nl = 0, None
+    if n_model > 1:
+        nl = E // n_model
+        lo = mesh.get_local_rank(ctx.model_axis) * nl
+    y, me, ce = _moe_local(w, cfg, xl.reshape(tokens, d), capacity, lo, nl)
+    ypl = list(tok)
+    if n_model > 1:
+        ypl[mi] = Partial()            # each model rank's experts' part
+    y = DTensor.from_local(y.reshape(xl.shape), mesh, ypl,
+                           run_check=False).redistribute(mesh, tok)
+    stat = [Partial("avg") if isinstance(p, Shard) else Replicate()
+            for p in tok]
+    ce = DTensor.from_local(ce, mesh, stat, run_check=False).redistribute(
+        mesh, rep)
+    if n_model == 1:
+        # the whole batch on every rank: its own me, replicated
+        return y, DTensor.from_local(me, mesh, rep, run_check=False), ce
+    probs = torch.softmax(_router_logits(
+        {"router": as_dtensor(params["router"], mesh)},
+        xs.reshape(B * S, d)).to(torch.float32), dim=-1)
+    return y, probs.mean(dim=0).redistribute(mesh, rep), ce

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, gelu
+from repro_torch.sharding import constrain, matmul
 
 RG_LRU_C = 8.0
 
@@ -57,8 +58,8 @@ def _causal_conv1d(kernel, bias, x, conv_state):
 def _rg_lru_coeffs(p, x):
     """x [B,T,lru] -> (a, b) with h_t = a_t h_{t-1} + b_t, all f32."""
     xf = x.to(torch.float32)
-    i = torch.sigmoid(xf @ p["W_i"].to(torch.float32) + p["b_i"])
-    r = torch.sigmoid(xf @ p["W_r"].to(torch.float32) + p["b_r"])
+    i = torch.sigmoid(matmul(xf, p["W_i"].to(torch.float32)) + p["b_i"])
+    r = torch.sigmoid(matmul(xf, p["W_r"].to(torch.float32)) + p["b_r"])
     log_a = -RG_LRU_C * F.softplus(p["Lambda"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0)) \
@@ -66,10 +67,13 @@ def _rg_lru_coeffs(p, x):
     return a, b
 
 
-def rg_lru_scan(p, x, h0):
+def rg_lru_scan(p, x, h0, ctx=None):
     """The recurrence over all of x [B,T,lru] from h0 [B,lru] f32 ->
-    (h in x's dtype, h_T f32)."""
+    (h in x's dtype, h_T f32).  Under ``ctx`` the coefficients keep x's
+    placements (batch, whole time, channels over "sp") for the scan."""
     a, b = _rg_lru_coeffs(p, x)
+    a = constrain(a, ctx, "batch", None, "sp")
+    b = constrain(b, ctx, "batch", None, "sp")
     h, h_last = ops.rglru(a, b, h0)
     return h.to(x.dtype), h_last
 
@@ -81,18 +85,23 @@ def rg_lru_step(p, x, h0):
     return h[:, None, :].to(x.dtype), h
 
 
-def recurrent_block(p, cfg: ModelConfig, x, state, decode: bool = False):
+def recurrent_block(p, cfg: ModelConfig, x, state, decode: bool = False,
+                    ctx=None):
     """Griffin recurrent block. x [B,T,d];
     state = {'h': [B,lru] f32, 'conv': [B,W-1,lru] f32}."""
-    gate = gelu(x @ p["w_gate"])
-    xb = x @ p["w_x"]
+    # the scan needs the whole time axis: the block's input is gathered
+    # over the sequence once, here
+    x = constrain(x, ctx, "batch", None, None)
+    gate = gelu(matmul(x, p["w_gate"]))
+    xb = matmul(x, p["w_x"])
+    xb = constrain(xb, ctx, "batch", None, "sp")
     xb, conv_state = _causal_conv1d(p["conv_kernel"], p["conv_bias"], xb,
                                     state["conv"])
     if decode:
         h, h_last = rg_lru_step(p, xb, state["h"])
     else:
-        h, h_last = rg_lru_scan(p, xb, state["h"])
-    out = (h * gate) @ p["w_out"]
+        h, h_last = rg_lru_scan(p, xb, state["h"], ctx)
+    out = matmul(h * gate, p["w_out"])
     return out, {"h": h_last, "conv": conv_state.to(torch.float32)}
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, group_norm
+from repro_torch.sharding import constrain, matmul
 
 LORA_RANK = 32
 
@@ -92,15 +93,16 @@ def _ddlerp(p, x, prev):
     sx = prev - x
     xxx = x + sx * p["maa_x"]
     B, T, d = x.shape
-    lora = torch.tanh(xxx @ p["maa_A"]).reshape(B, T, 5, LORA_RANK)
+    lora = torch.tanh(matmul(xxx, p["maa_A"])).reshape(B, T, 5, LORA_RANK)
     adj = torch.einsum("btfr,frd->fbtd", lora, p["maa_B"])     # [5,B,T,d]
     mixed = x[None] + sx[None] * (p["maa_rkvwg"][:, None, None, :] + adj)
     return mixed  # [5, B, T, d] -> r,k,v,w,g order
 
 
 def _decay(p, xw):
-    w_raw = p["w_base"] + torch.tanh(xw @ p["w_A"]).to(torch.float32) \
-        @ p["w_B"].to(torch.float32)
+    w_raw = p["w_base"] + matmul(
+        torch.tanh(matmul(xw, p["w_A"])).to(torch.float32),
+        p["w_B"].to(torch.float32))
     return torch.exp(-torch.exp(torch.clamp(w_raw, -8.0, 1.0)))  # in (0,1)
 
 
@@ -114,8 +116,14 @@ def wkv_step(r, k, v, w, u, state):
     return y, state
 
 
-def time_mix(p, cfg: ModelConfig, x, shift_state, wkv_state):
-    """x [B,T,d] -> (y, new_shift [B,d], new_wkv_state)."""
+def time_mix(p, cfg: ModelConfig, x, shift_state, wkv_state, ctx=None):
+    """x [B,T,d] -> (y, new_shift [B,d], new_wkv_state).  Under ``ctx``,
+    r is constrained as the reference's (batch, whole time, heads over
+    "model"), and so are k, v and w, which the scan takes at r's
+    placements (the reference leaves their layout to the compiler).  The
+    token shift and the scan need the whole time axis, so x is gathered
+    over the sequence once, here."""
+    x = constrain(x, ctx, "batch", None, None)
     B, T, d = x.shape
     H, hd = cfg.num_heads, cfg.rwkv_head_dim
     prev = _token_shift(x, shift_state)
@@ -124,15 +132,17 @@ def time_mix(p, cfg: ModelConfig, x, shift_state, wkv_state):
     def heads(a):
         return a.reshape(B, T, H, hd)
 
-    r = heads(xr @ p["W_r"])
-    k = heads(xk @ p["W_k"])
-    v = heads(xv @ p["W_v"])
-    g = F.silu(xg @ p["W_g"])
+    r = heads(matmul(xr, p["W_r"]))
+    k = heads(matmul(xk, p["W_k"]))
+    v = heads(matmul(xv, p["W_v"]))
+    g = F.silu(matmul(xg, p["W_g"]))
     w = heads(_decay(p, xw))
+    r, k, v, w = (constrain(a, ctx, "batch", None, "model", None)
+                  for a in (r, k, v, w))
     y, wkv_state = ops.wkv(r, k, v, w, p["u"], wkv_state)
     y = y.reshape(B, T, H * hd)
     y = group_norm(y, H, scale=p["gn_scale"], bias=p["gn_bias"])
-    y = (y * g) @ p["W_o"]
+    y = matmul(y * g, p["W_o"])
     return y, x[:, -1], wkv_state
 
 
@@ -146,21 +156,24 @@ def time_mix_step(p, cfg: ModelConfig, x, shift_state, wkv_state):
     def sq(a):
         return a.reshape(B, H, hd)
 
-    r, k, v = sq(xr @ p["W_r"]), sq(xk @ p["W_k"]), sq(xv @ p["W_v"])
-    g = F.silu(xg @ p["W_g"])[:, 0]
+    r, k, v = (sq(matmul(xr, p["W_r"])), sq(matmul(xk, p["W_k"])),
+               sq(matmul(xv, p["W_v"])))
+    g = F.silu(matmul(xg, p["W_g"]))[:, 0]
     w = sq(_decay(p, xw))
     y, wkv_state = wkv_step(r, k, v, w, p["u"], wkv_state)
     y = y.reshape(B, H * hd).to(x.dtype)
     y = group_norm(y, H, scale=p["gn_scale"], bias=p["gn_bias"])
-    y = (y * g) @ p["W_o"]
+    y = matmul(y * g, p["W_o"])
     return y[:, None, :], x[:, -1], wkv_state
 
 
-def channel_mix(p, x, shift_state):
+def channel_mix(p, x, shift_state, ctx=None):
+    x = constrain(x, ctx, "batch", None, None)   # the token shift's
     prev = _token_shift(x, shift_state)
     sx = prev - x
     xk = x + sx * p["maa_k"]
     xr = x + sx * p["maa_r"]
-    kk = torch.square(torch.relu(xk @ p["W_k"]))
-    out = torch.sigmoid(xr @ p["W_r"]) * (kk @ p["W_v"])
+    kk = torch.square(torch.relu(matmul(xk, p["W_k"])))
+    kk = constrain(kk, ctx, "batch", None, "sp")
+    out = torch.sigmoid(matmul(xr, p["W_r"])) * matmul(kk, p["W_v"])
     return out, x[:, -1]

@@ -15,15 +15,22 @@ sinusoidal positions; the VLM's cross layers attend over
 ``enc_proj`` when encoder_dim != d_model), whose keys and values the
 prefill caches for decode.
 
+Every function below takes ``ctx`` (a ``ShardingCtx``, default None):
+under a mesh the params and inputs are DTensors, each public function
+enters ``sharding.sharded_scope`` once (the private ones it calls run
+inside it) and the reference's ``constrain`` calls place the activations
+(``x`` over ("batch", "sp", None) between layers, the logits over
+("batch", None, "sp")).  With ``ctx=None`` nothing changes.
+
 Public API (functional):
     init(gen, cfg)                                  -> params
-    forward_hidden(params, cfg, batch, collect_cache, cache_len)
+    forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx)
                                                     -> (hidden, aux, cache)
-    forward(params, cfg, batch, collect_cache, cache_len)
+    forward(params, cfg, batch, collect_cache, cache_len, ctx)
                                                     -> (logits, aux, cache)
-    loss_fn(params, cfg, batch)                     -> (loss, metrics)
+    loss_fn(params, cfg, batch, ctx=ctx)            -> (loss, metrics)
     init_cache(cfg, batch_size, cache_len, device)  -> cache
-    serve_step(params, cfg, cache, batch)           -> (logits, cache)
+    serve_step(params, cfg, cache, batch, ctx)      -> (logits, cache)
 """
 from __future__ import annotations
 
@@ -39,6 +46,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
+from repro_torch.sharding import (as_dtensor, constrain, matmul,
+                                  partial_where_split, sharded_scope)
 
 
 def _dtype(cfg: ModelConfig):
@@ -241,12 +250,14 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
                 state=None, decode=False, collect_cache=False,
-                cache_len: int = 0):
+                cache_len: int = 0, ctx=None):
     """Returns (x, aux_loss, new_state); ``enc`` [B,T,d] are the encoder
-    states a cross layer attends over in prefill."""
+    states a cross layer attends over in prefill.  Under ``ctx`` the
+    residual stream enters sequence-sharded over the model axis."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = state
     B = x.shape[0]
+    x = constrain(x, ctx, "batch", "sp", None)
 
     if kind == RWKV:
         h = W.layer_norm(p["ln1"], x)
@@ -261,12 +272,12 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
             wkv_0 = (torch.zeros((B, cfg.num_heads, rhd, rhd),
                                  dtype=torch.float32, device=x.device)
                      if state is None else state["wkv"])
-            y, s1, wkv = W.time_mix(p["tm"], cfg, h, s1_0, wkv_0)
+            y, s1, wkv = W.time_mix(p["tm"], cfg, h, s1_0, wkv_0, ctx)
         x = x + y
         h = W.layer_norm(p["ln2"], x)
         s2_0 = (torch.zeros((B, cfg.d_model), dtype=x.dtype, device=x.device)
                 if state is None else state["shift2"])
-        y, s2 = W.channel_mix(p["cm"], h, s2_0)
+        y, s2 = W.channel_mix(p["cm"], h, s2_0, ctx)
         x = x + y
         if collect_cache or decode:
             new_state = {"shift1": s1.to(_dtype(cfg)),
@@ -277,9 +288,11 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
         h = L.rms_norm(p["norm1"], x)
         s0 = R.init_recurrent_state(cfg, B, x.device) if state is None \
             else state
-        y, s = R.recurrent_block(p["rec"], cfg, h, s0, decode=decode)
+        y, s = R.recurrent_block(p["rec"], cfg, h, s0, decode=decode,
+                                 ctx=ctx)
         x = x + y
-        x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x), act=L.gelu)
+        x = x + L.swiglu(p["ffn"], L.rms_norm(p["norm2"], x), act=L.gelu,
+                         ctx=ctx)
         return x, aux, (s if (collect_cache or decode) else state)
 
     h = L.rms_norm(p["norm1"], x)
@@ -288,28 +301,30 @@ def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
     if kind == CROSS_ATTN:
         if decode:
             y, _, _ = L.multihead_attention(p["attn"], cfg, h, causal=False,
-                                            cache=state, cache_fixed_kv=True)
+                                            cache=state, cache_fixed_kv=True,
+                                            ctx=ctx)
         else:
             y, _, (k, v) = L.multihead_attention(p["attn"], cfg, h,
-                                                 kv_x=enc, causal=False)
+                                                 kv_x=enc, causal=False,
+                                                 ctx=ctx)
             if collect_cache:
                 new_state = {"k": k.contiguous(), "v": v.contiguous()}
     elif decode:
         y, new_state, _ = L.multihead_attention(
             p["attn"], cfg, h, q_pos=q_pos, causal=True, window=window,
-            rope_theta=theta, cache=state)
+            rope_theta=theta, cache=state, ctx=ctx)
     else:
         y, _, kv = L.multihead_attention(
             p["attn"], cfg, h, q_pos=q_pos, causal=True, window=window,
-            rope_theta=theta)
+            rope_theta=theta, ctx=ctx)
         if collect_cache:
             new_state = _prefill_cache(cfg, kind, kv, q_pos, cache_len)
     x = x + y
     h = L.rms_norm(p["norm2"], x)
     if cfg.num_experts:
-        y, aux = M.moe_ffn(p["ffn"], cfg, h)
+        y, aux = M.moe_ffn(p["ffn"], cfg, h, ctx)
     else:
-        y = L.swiglu(p["ffn"], h)
+        y = L.swiglu(p["ffn"], h, ctx=ctx)
     return x + y, aux, new_state
 
 
@@ -341,7 +356,7 @@ def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
 # trunk, head and loss
 
 
-def _embed(params, cfg: ModelConfig, batch):
+def _embed(params, cfg: ModelConfig, batch, ctx=None):
     """Token embeddings (the audio family: frame_embeddings @ embed_proj)
     times sqrt(d_model), plus sinusoidal positions where the config has
     them, at batch['positions'] (default 0..S-1)."""
@@ -350,7 +365,9 @@ def _embed(params, cfg: ModelConfig, batch):
     # bit for bit
     dt = _dtype(cfg)
     if cfg.family == "audio":
-        x = batch["frame_embeddings"].to(dt) @ params["embed_proj"]
+        x = matmul(batch["frame_embeddings"].to(dt), params["embed_proj"])
+    elif ctx is not None and ctx.mesh is not None:
+        x = _embed_sharded(batch["tokens"], params["embed"], ctx).to(dt)
     else:
         x = F.embedding(batch["tokens"], params["embed"]).to(dt)
     x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
@@ -360,33 +377,71 @@ def _embed(params, cfg: ModelConfig, batch):
         if pos is None:
             pos = torch.arange(x.shape[1], device=x.device)[None, :]
         x = x + L.sinusoidal_pos(pos, cfg.d_model).to(dt)
-    return x
+    return constrain(x, ctx, "batch", "sp", None)
 
 
-def _encoder_states(params, cfg: ModelConfig, batch):
+def _embed_sharded(tokens, table, ctx):
+    """``F.embedding`` of DTensor tokens [B,S] (batch over the batch axes)
+    in a table whose vocab may be split over the model axis
+    (vocab-parallel: each model rank looks up the tokens in its rows,
+    zeros elsewhere, and the rows are summed over the model axis).  The
+    table's d_model dim is first gathered: the batch axes carry the
+    tokens.  Returns [B,S,d] over the tokens' placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = ctx.mesh
+    names = list(mesh.mesh_dim_names)
+    tok = constrain(tokens, ctx, "batch", None)
+    mi = names.index(ctx.model_axis)
+    vocab_split = (mesh.size(mi) > 1
+                   and table.shape[0] % mesh.size(mi) == 0)
+    tpl = [Replicate()] * mesh.ndim
+    if vocab_split:
+        tpl[mi] = Shard(0)
+    t = tok.to_local()
+    # each rank's rows are its own tokens': its table gradient is its
+    # part of the sum over the mesh dims that split the tokens
+    w = as_dtensor(table, mesh).redistribute(mesh, tpl).to_local(
+        grad_placements=partial_where_split(tok.placements, tpl))
+    out_pl = list(tok.placements)
+    if vocab_split:
+        lo = mesh.get_local_rank(mi) * w.shape[0]
+        idx = t - lo
+        ok = (idx >= 0) & (idx < w.shape[0])
+        rows = F.embedding(torch.where(ok, idx, 0), w) \
+            * ok[..., None].to(w.dtype)
+        out_pl[mi] = Partial()
+    else:
+        rows = F.embedding(t, w)
+    out = DTensor.from_local(rows, mesh, out_pl, run_check=False)
+    return out.redistribute(mesh, tok.placements)
+
+
+def _encoder_states(params, cfg: ModelConfig, batch, ctx=None):
     """The VLM's encoder states [B,T,d] (None for other families)."""
     if cfg.family != "vlm":
         return None
     enc = batch["encoder_embeddings"].to(_dtype(cfg))
     if "enc_proj" in params:
-        enc = enc @ params["enc_proj"]
-    return enc
+        enc = matmul(enc, params["enc_proj"])
+    return constrain(enc, ctx, "batch", None, None)
 
 
-def _head(params, cfg: ModelConfig, x):
+def _head(params, cfg: ModelConfig, x, ctx=None):
     xn = (W.layer_norm(params["final_norm"], x)
           if RWKV in cfg.block_pattern
           else L.rms_norm(params["final_norm"], x))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = xn.to(torch.float32) @ head.to(torch.float32)
+    logits = matmul(xn.to(torch.float32), head.to(torch.float32))
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c
-    return logits
+    # vocab column-parallel in both regimes ("sp" is always the model axis)
+    return constrain(logits, ctx, "batch", None, "sp")
 
 
 def forward_hidden(params, cfg: ModelConfig, batch,
-                   collect_cache: bool = False, cache_len: int = 0):
+                   collect_cache: bool = False, cache_len: int = 0,
+                   ctx=None):
     """The trunk: every layer over batch['tokens'] [B,S] (the audio
     family: batch['frame_embeddings']; the VLM also reads
     batch['encoder_embeddings']).  Returns (final
@@ -404,14 +459,20 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     list of period trees whose leaves are leaves of its backward, each
     with a slice of one preallocated stack as its ``.grad``, so that no
     stacked copy of the gradients is made."""
-    x = _embed(params, cfg, batch)
-    enc = _encoder_states(params, cfg, batch)
+    with sharded_scope(ctx):
+        return _forward_hidden(params, cfg, batch, collect_cache, cache_len,
+                               ctx)
+
+
+def _forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx):
+    x = _embed(params, cfg, batch, ctx)
+    enc = _encoder_states(params, cfg, batch, ctx)
     S = x.shape[1]
     q_pos = torch.arange(S, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     kw = dict(enc=enc, q_pos=q_pos, collect_cache=collect_cache,
-              cache_len=cache_len)
+              cache_len=cache_len, ctx=ctx)
 
     def run(p, kind, x, aux):
         if remat:
@@ -446,30 +507,41 @@ def forward_hidden(params, cfg: ModelConfig, batch,
 
 
 def forward(params, cfg: ModelConfig, batch, collect_cache: bool = False,
-            cache_len: int = 0):
+            cache_len: int = 0, ctx=None):
     """Full-sequence forward of batch['tokens'] [B,S].  Returns (logits
     [B,S,V] f32, aux, cache-or-None)."""
-    x, aux, cache = forward_hidden(params, cfg, batch, collect_cache,
-                                   cache_len)
-    return _head(params, cfg, x), aux, cache
+    with sharded_scope(ctx):
+        return _forward(params, cfg, batch, collect_cache, cache_len, ctx)
+
+
+def _forward(params, cfg, batch, collect_cache, cache_len, ctx):
+    x, aux, cache = _forward_hidden(params, cfg, batch, collect_cache,
+                                    cache_len, ctx)
+    return _head(params, cfg, x, ctx), aux, cache
 
 
 CE_CHUNK = 512
 
 
-def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0):
+def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0,
+            ctx=None):
     """Next-token CE of batch['targets'] [B,S] (weighted by
     batch['loss_mask'] when given) plus the aux loss -> (total, {"ce_loss",
     "aux_loss"}).  Where S * vocab > 2**24 the head and CE run chunk by
     chunk (``_chunked_ce``), so the [B,S,V] f32 logits are never whole."""
+    with sharded_scope(ctx):
+        return _loss_fn(params, cfg, batch, label_smoothing, ctx)
+
+
+def _loss_fn(params, cfg, batch, label_smoothing, ctx):
     S = batch["targets"].shape[1]
     big = S * cfg.vocab_size > (1 << 24)
     if big and not cfg.unroll_for_costing:
-        x, aux, _ = forward_hidden(params, cfg, batch)
+        x, aux, _ = _forward_hidden(params, cfg, batch, False, 0, ctx)
         loss = _chunked_ce(params, cfg, x, batch["targets"],
-                           batch.get("loss_mask"), label_smoothing)
+                           batch.get("loss_mask"), label_smoothing, ctx=ctx)
     else:
-        logits, aux, _ = forward(params, cfg, batch)
+        logits, aux, _ = _forward(params, cfg, batch, False, 0, ctx)
         loss = L.softmax_cross_entropy(logits, batch["targets"],
                                        batch.get("loss_mask"),
                                        label_smoothing)
@@ -477,7 +549,7 @@ def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0):
 
 
 def _chunked_ce(params, cfg: ModelConfig, x, targets, mask,
-                label_smoothing: float, chunk: int = CE_CHUNK):
+                label_smoothing: float, chunk: int = CE_CHUNK, ctx=None):
     """The head and CE over sequence chunks of x [B,S,d] (the tail padded
     with zero weight), each chunk under ``torch.utils.checkpoint`` (its
     [B,chunk,V] logits are recomputed in the backward, not kept)."""
@@ -492,8 +564,8 @@ def _chunked_ce(params, cfg: ModelConfig, x, targets, mask,
         mask = F.pad(mask, (0, pad))
 
     def body(xi, ti, mi):
-        return L.softmax_cross_entropy_sums(_head(params, cfg, xi), ti, mi,
-                                            label_smoothing)
+        return L.softmax_cross_entropy_sums(_head(params, cfg, xi, ctx), ti,
+                                            mi, label_smoothing)
 
     sums, wsums = [], []
     for c0 in range(0, S + pad, chunk):
@@ -507,20 +579,25 @@ def _chunked_ce(params, cfg: ModelConfig, x, targets, mask,
                                                  min=1.0)
 
 
-def serve_step(params, cfg: ModelConfig, cache, batch):
+def serve_step(params, cfg: ModelConfig, cache, batch, ctx=None):
     """One decode step: batch['tokens'] [B,1] (the audio family:
     batch['frame_embeddings'] [B,1,encoder_dim], its sinusoidal position
     ``cache['pos']``; cross layers read their cached encoder keys and
     values).  Returns (logits [B,1,V], new cache); the cache passed in is
     left as it was."""
+    with sharded_scope(ctx):
+        return _serve_step(params, cfg, cache, batch, ctx)
+
+
+def _serve_step(params, cfg, cache, batch, ctx):
     pos = cache["pos"]
-    x = _embed(params, cfg, {**batch, "positions": pos.reshape(1, 1)})
+    x = _embed(params, cfg, {**batch, "positions": pos.reshape(1, 1)}, ctx)
     B = x.shape[0]
     q_pos = pos.reshape(1, 1).expand(B, 1)
 
     def run(p, kind, x, state):
         x, _, st = apply_layer(p, cfg, kind, x, q_pos=q_pos, state=state,
-                               decode=True)
+                               decode=True, ctx=ctx)
         return x, st
 
     new_cache = {}
@@ -538,5 +615,5 @@ def serve_step(params, cfg: ModelConfig, cache, batch):
                                       cfg.block_pattern[i], x,
                                       cache[f"rem{i}"])
     new_cache["pos"] = pos + 1
-    logits = _head(params, cfg, x)
+    logits = _head(params, cfg, x, ctx)
     return logits, new_cache

@@ -8,15 +8,44 @@ from its data sheet (dense rates, no sparsity, at the 700 W power limit):
 
 ``count_params`` and ``model_flops`` are the reference's arithmetic:
 6 N_active D FLOPs for a train step of D tokens, 2 N_active D for a
-forward.  The reference's ``collective_bytes_from_hlo`` reads XLA's
-optimized HLO text and has no counterpart until the port is sharded.
+forward.
+
+The reference's ``collective_bytes_from_hlo`` reads XLA's optimized HLO
+text; its counterpart here reads the port's own trace: ``TraceCounter``,
+a ``TorchDispatchMode`` that sees each rank's local ops under DTensor
+(it lets DTensor run first and counts the ops DTensor runs on the local
+shards, so its counts are one device's, not the global program's as
+``FlopCounterMode`` around DTensor code gives).  It sums, per device:
+
+  * FLOPs of the local ops (``torch.utils.flop_counter``'s formulas);
+  * bytes: every local op's input and output bytes (views and empty
+    allocations excepted), an unfused count, an upper bound of what a
+    fused program moves;
+  * collective bytes: the result bytes of each ``c10d_functional``
+    collective by kind (``all_gather_into_tensor`` -> all-gather,
+    ``all_reduce`` -> all-reduce, ``reduce_scatter_tensor`` ->
+    reduce-scatter, ``all_to_all_single`` -> all-to-all; permutes ->
+    collective-permute), the reference's proxy "result bytes ~= bytes
+    crossing links per device" (``collective_bytes()``, the reference's
+    dict: the five kinds and ``counts``);
+  * peak live bytes of the local storages (``track`` the params and
+    inputs first; each op's new storages are added, and subtracted when
+    their storage is freed).
+DTensor's own shape propagation (its ops on fake tensors of the global
+shapes, ``ShardingPropagator._propagate_tensor_meta_non_cached``) is not
+counted.
 """
 from __future__ import annotations
 
 import dataclasses
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import (CROSS_ATTN, RECURRENT, RWKV,
                                       ModelConfig)
+from repro_torch.launch.shapes import InputShape
 
 PEAK_FLOPS = 989e12        # bf16 (and fp16) on the tensor cores
 TF32_FLOPS = 495e12        # TF32 on the tensor cores
@@ -25,14 +54,130 @@ HBM_BW = 3.35e12           # bytes/s of HBM3
 LINK_BW = 900e9            # bytes/s of NVLink to the host's other cards
 
 
-@dataclasses.dataclass(frozen=True)
-class InputShape:
-    """A workload's tokens: ``global_batch`` sequences of ``seq_len``
-    (the reference's ``launch/shapes.py`` dataclass)."""
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str            # train | prefill | decode
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+_COLLECTIVE_NAMES = (("all_gather", "all-gather"),
+                     ("all_reduce", "all-reduce"),
+                     ("reduce_scatter", "reduce-scatter"),
+                     ("all_to_all", "all-to-all"),
+                     ("permute", "collective-permute"))
+
+
+def _collective_kind(func):
+    """The kind of a ``c10d_functional`` collective op, else None."""
+    ns = func.namespace
+    if "c10d_functional" not in ns:
+        return None
+    name = func._overloadpacket.__name__
+    for key, kind in _COLLECTIVE_NAMES:
+        if key in name:
+            return kind
+    return None
+
+
+def _tensors(tree):
+    return [x for x in torch.utils._pytree.tree_leaves(tree)
+            if isinstance(x, torch.Tensor)]
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+class TraceCounter(TorchDispatchMode):
+    """Per-device FLOPs, bytes, collective bytes and peak live bytes of
+    the local ops run under it (module docstring)."""
+
+    _SKIP = ("empty", "empty_strided", "empty_like", "new_empty",
+             "new_empty_strided", "detach", "alias", "wait_tensor",
+             "_local_scalar_dense")
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0
+        self.bytes = 0
+        self.collectives = {k: 0.0 for k in COLLECTIVE_OPS}
+        self.counts = {k: 0 for k in COLLECTIVE_OPS}
+        self.live = 0
+        self.peak = 0
+        self._storages = {}
+        self._propagating = 0
+        self._restore = None
+
+    def __enter__(self):
+        from torch.distributed.tensor._sharding_prop import (
+            ShardingPropagator)
+        orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+        def propagate(prop, op_schema):
+            self._propagating += 1
+            try:
+                return orig(prop, op_schema)
+            finally:
+                self._propagating -= 1
+        ShardingPropagator._propagate_tensor_meta_non_cached = propagate
+        self._restore = lambda: setattr(
+            ShardingPropagator, "_propagate_tensor_meta_non_cached", orig)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._restore()
+        return super().__exit__(*exc)
+
+    def track(self, tree) -> None:
+        """Count the storages of the tensors of ``tree`` (DTensors: their
+        local shards) as live from now on."""
+        from torch.distributed.tensor import DTensor
+        for x in _tensors(tree):
+            self._add(x.to_local() if isinstance(x, DTensor) else x)
+
+    def _add(self, x) -> None:
+        st = x.untyped_storage()
+        key = st._cdata
+        if key in self._storages:
+            return
+        n = st.nbytes()
+
+        def gone(_, key=key, n=n):
+            self._storages.pop(key, None)
+            self.live -= n
+        self._storages[key] = weakref.ref(st, gone)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def collective_bytes(self) -> dict:
+        """The reference's ``collective_bytes_from_hlo`` dict."""
+        return dict(self.collectives, counts=dict(self.counts))
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # DTensor runs first, on local shards
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._propagating:
+            return out                 # DTensor's shape propagation
+        kind = _collective_kind(func)
+        outs = _tensors(out)
+        if kind is not None:
+            self.collectives[kind] += sum(_nbytes(x) for x in outs)
+            self.counts[kind] += 1
+        elif not func.is_view \
+                and func._overloadpacket.__name__ not in self._SKIP:
+            packet = func._overloadpacket
+            if packet in flop_registry:
+                shape = (lambda x: x.shape
+                         if isinstance(x, torch.Tensor) else x)
+                a, k, o = torch.utils._pytree.tree_map(
+                    shape, (args, kwargs, out))
+                self.flops += flop_registry[packet](*a, **k, out_val=o)
+            self.bytes += sum(_nbytes(x) for x in _tensors((args, kwargs)))
+            self.bytes += sum(_nbytes(x) for x in outs)
+        for x in outs:
+            self._add(x)
+        return out
 
 
 @dataclasses.dataclass

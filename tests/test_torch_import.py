@@ -22,11 +22,19 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print("MODULES", len([m for m in sys.modules if m.startswith("repro_torch")]))
 print("BAD", bad)
+print("MISSING", sorted(m for m in {new!r} if m not in sys.modules))
 """
+
+# the sharding context and the dry run (and the quickstart), which must
+# import no JAX either
+NEW_MODULES = ("repro_torch.sharding", "repro_torch.launch.mesh",
+               "repro_torch.launch.shapes", "repro_torch.launch.shardings",
+               "repro_torch.launch.dryrun", "repro_torch.quickstart")
 
 
 def test_port_imports_no_jax_and_no_reference():
-    code = IMPORT_ALL.format(src=os.path.join(ROOT, "src"), root=ROOT)
+    code = IMPORT_ALL.format(src=os.path.join(ROOT, "src"), root=ROOT,
+                             new=NEW_MODULES)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
@@ -34,6 +42,7 @@ def test_port_imports_no_jax_and_no_reference():
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
     assert int(lines["MODULES"]) >= 30
     assert lines["BAD"] == "[]"
+    assert lines["MISSING"] == "[]"
 
 
 @pytest.fixture

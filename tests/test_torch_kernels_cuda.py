@@ -1029,3 +1029,66 @@ def test_moe_backward_repeatable_on_card(cuda, dtype):
     if dt == torch.float32:
         for g, w in zip(one, grads("cpu", torch.float32)):
             assert float((g - w).norm() / w.norm()) <= 1e-4
+
+
+# K4 and K4-bwd at a query offset: under context parallelism a rank holds
+# the queries [a, b) of S over all T = S keys and runs the kernel at
+# q_offset = a.  One card cannot run two shards, so each slice is run
+# alone and held to rows a:b of the plain version's full attention (the
+# backward to the plain version at the same offset).  Slices whose causal
+# edge cuts a 64-key tile mid-way, and gemma3's window of 1024 cut inside
+# a tile.  B, H, KV, S, hd, window, slices.
+Q_OFFSET_CASES = [(1, 14, 2, 600, 128, 0,                 # qwen2-7b's
+                   [(0, 128), (130, 300), (300, 600), (37, 101)]),
+                  (1, 4, 2, 1300, 128, 1024,               # gemma3-27b's
+                   [(0, 200), (200, 650), (650, 1300)]),
+                  (2, 10, 1, 300, 256, 0, [(0, 100), (100, 300)])]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,KV,S,hd,window,slices", Q_OFFSET_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_kernels_query_offset_on_card(cuda, B, H, KV, S, hd,
+                                                window, slices, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    dt = getattr(torch, dtype)
+    atol, rtol = BF16_ATTN_TOL if dt == torch.bfloat16 else (3e-5, 1e-4)
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(S + hd), B, H, KV,
+                                  S, S, hd, dt, cuda)
+    full = tref.attention_ref(q, k, v, causal=True, window=window)
+    for a, b in slices:
+        qs, dos = q[:, :, a:b], do[:, :, a:b]
+        out = flash_attention_cuda(qs, k, v, causal=True, window=window,
+                                   q_offset=a)
+        got = flash_attention_bwd_cuda(qs, k, v, dos, causal=True,
+                                       window=window, q_offset=a)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), full[:, :, a:b].float(),
+                                   atol=atol, rtol=rtol)
+        want = tref.attention_bwd_ref(qs, k, v, dos, causal=True,
+                                      window=window, q_offset=a)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                       rtol=rtol, msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_attention_kernels_default_offset_is_bitwise_on_card(cuda, dtype):
+    """q_offset = T - S is the call without it, bit for bit (T > S);
+    a negative offset is refused by the backward."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    B, H, KV, S, T, hd = 1, 4, 2, 100, 300, 128
+    q, k, v, do = attn_bwd_inputs(np.random.default_rng(9), B, H, KV, S, T,
+                                  hd, getattr(torch, dtype), cuda)
+    assert torch.equal(flash_attention_cuda(q, k, v, window=64),
+                       flash_attention_cuda(q, k, v, window=64,
+                                            q_offset=T - S))
+    one = flash_attention_bwd_cuda(q, k, v, do, window=64)
+    two = flash_attention_bwd_cuda(q, k, v, do, window=64, q_offset=T - S)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+    with pytest.raises(ValueError, match="see no key"):
+        flash_attention_bwd_cuda(q, k, v, do, q_offset=-1)
