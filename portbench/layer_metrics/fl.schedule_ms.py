@@ -1,0 +1,10 @@
+"""The round's ``schedule`` phase (the trainer's obs span), host ms, mean over
+the window's rounds."""
+
+
+def read(run):
+    recs = [r for r in run.layer.get("records") or []
+            if "schedule" in r.get("phases", {})]
+    if not recs:
+        return None
+    return 1e3 * sum(r["phases"]["schedule"] for r in recs) / len(recs)
