@@ -31,11 +31,12 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.estimation import tree_leaves, tree_map, tree_norm
 from repro_torch.models import transformer as T
+from repro_torch.obs import DEFAULT, DISABLED
 from repro_torch.sharding import is_dtensor, sharded_scope
 
 
 def make_train_step(cfg: ModelConfig, eta: float = 0.1,
-                    federated: bool = False, *, ctx=None):
+                    federated: bool = False, *, ctx=None, obs=None):
     """Returns train_step(params, batch) -> (new params, metrics).
 
     batch: tokens/targets [B, S] (and an optional loss_mask [B, S]); when
@@ -59,13 +60,29 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
     new leaf formed in its local buffer; the gradient norm is reduced
     over every shard (the same scalar on every rank), and the metrics are
     plain replicated tensors.
+
+    ``obs`` (a ``repro_torch.obs.Obs``; default the process-wide
+    ``DEFAULT``, live while a profiler records) traces the step when
+    live: an ``lm.step`` span per call over ``lm.trunk``, ``lm.head``
+    (the head and CE), ``lm.backward`` (split by a gradient hook on the
+    trunk's output into ``lm.head_bwd`` and ``lm.trunk_bwd``) and
+    ``lm.update`` (gradients, norm, SGD), each with a CUDA event at both
+    ends on the card (``SpanRecord.device_s``).  Not live, the step
+    registers no hook, records no event and reads no clock.
     """
+    if obs is None:
+        obs = DEFAULT
 
     def train_step(params, batch):
         with sharded_scope(ctx):
-            return _train_step(params, batch)
+            if not obs.enabled:
+                return _train_step(params, batch, DISABLED)
+            device = batch["targets"].device
+            with obs.device_span("lm.step", device):
+                return _train_step(params, batch, obs)
 
-    def _train_step(params, batch):
+    def _train_step(params, batch, obs):
+        device = batch["targets"].device if obs.enabled else None
         p = {k: tree_map(_leaf, v) for k, v in params.items()
              if k != "blocks"}
         if "blocks" in params:
@@ -84,9 +101,10 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
                 else torch.ones((w.shape[0], S), dtype=torch.float32,
                                 device=w.device))
         with torch.enable_grad():
-            total, metrics = T._loss_fn(p, cfg, lm_batch, 0.0, ctx)
-            total.backward()
-        with torch.no_grad():
+            total, metrics = T._loss_fn(p, cfg, lm_batch, 0.0, ctx, obs)
+            with obs.device_span("lm.backward", device):
+                total.backward()
+        with torch.no_grad(), obs.device_span("lm.update", device):
             grads = {k: (gblocks if k == "blocks" else tree_map(
                 lambda x: torch.zeros_like(x) if x.grad is None else x.grad,
                 p[k])) for k in params}

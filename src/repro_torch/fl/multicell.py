@@ -177,19 +177,19 @@ class MultiCellTrainer:
                              dataclasses.replace(cell_cfg,
                                                  seed=cell_seeds[c]))
             for c in range(C)]
-        for cell in self.cells:
+        for c, cell in enumerate(self.cells):
             cell.faults.obs = self.obs     # injected-fault counters
+            cell._eval_obs = self.obs      # evaluation's span
+            cell._eval_tags = {"cell": c}
         self.device = self.cells[0].device
         # every cell runs the same architecture: share cell 0's cores so
         # C=1 runs exactly the calls FederatedTrainer makes
-        self._core = self.obs.instrument_jit("round_core",
-                                             self.cells[0]._round_core)
+        self._core = self.cells[0]._round_core
         for cell in self.cells[1:]:
             cell._round_core = self.cells[0]._round_core
             cell._sigma_all = self.cells[0]._sigma_all
             cell._finalize_core = self.cells[0]._finalize_core
-        self._finalize_core = self.obs.instrument_jit(
-            "finalize_core", self.cells[0]._finalize_core)
+        self._finalize_core = self.cells[0]._finalize_core
         # params stay stacked [C, ...] across rounds (the round core and
         # finalize consume and produce the stack); cells hold views
         self._params_c = _stack([cell.params for cell in self.cells])
@@ -248,6 +248,7 @@ class MultiCellTrainer:
         self.last_round_host_syncs = 0
         for cell in cells:
             cell.last_round_host_syncs = 0
+            cell.last_round_eval_syncs = 0
 
         # host-side prep: availability / channel / batch / dropout draws
         # stay on each cell's own streams, the channel math runs once
@@ -393,7 +394,9 @@ class MultiCellTrainer:
             sum(r["g_refresh_errors_round"] for r in recs))
         self.obs.round_record({
             "kind": "multicell_round", "round": j, "cells": C,
-            "host_syncs": hs, "num_uploaded": uploads,
+            "host_syncs": hs,
+            "eval_syncs": sum(c.last_round_eval_syncs for c in self.cells),
+            "num_uploaded": uploads,
             "upload_bytes": upload_bytes,
             "solve_many_calls": self.solve_many_calls,
         })

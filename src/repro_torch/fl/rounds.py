@@ -180,17 +180,16 @@ class FederatedTrainer:
         self.g_refresh_errors = 0                    # cumulative Eq. 12 skips
         self._obs_sched_iters = 0                    # last round, for obs
 
-        # instrument_jit is the identity when obs is disabled; enabled,
-        # it counts calls per core
-        self._round_core = self.obs.instrument_jit(
-            "round_core", make_round_core(self.model.loss_fn,
-                                          self._sigma_all, cfg.eta,
-                                          cfg.tau))
-        self._finalize_core = self.obs.instrument_jit(
-            "finalize_core", make_finalize_core(cfg.tau, cfg.eta))
-        self._eval_batch = self.obs.instrument_jit("eval", self._eval_fn)
+        self._round_core = make_round_core(self.model.loss_fn,
+                                           self._sigma_all, cfg.eta, cfg.tau)
+        self._finalize_core = make_finalize_core(cfg.tau, cfg.eta)
         self.last_round_host_syncs = 0       # device->host pulls between
         #   local update and aggregation (fused round contract: <= 3)
+        self.last_round_eval_syncs = 0       # evaluation's pulls, apart
+        # where evaluation's span goes: a multi-cell engine points these
+        # at its own facade and the cell's index
+        self._eval_obs = self.obs
+        self._eval_tags: Dict = {}
 
         # single-class-per-device detection (enables FSCD-Gc)
         self.device_class = self.p_dev.argmax(axis=1)
@@ -579,6 +578,7 @@ class FederatedTrainer:
         with obs.span("prep"):
             prep = self._prepare_round(j)
         self.last_round_host_syncs = 0
+        self.last_round_eval_syncs = 0
 
         # fused round core: local update + sigma + deltas + norms +
         # NaN/Inf flags (cell axis of 1), one host pull for all of it
@@ -645,19 +645,25 @@ class FederatedTrainer:
         m.histogram("sched.iterations", COUNT_BUCKETS).observe(
             self._obs_sched_iters)
         self.obs.round_record(dict(
-            rec, host_syncs=hs, upload_bytes=upload_bytes,
+            rec, host_syncs=hs, eval_syncs=self.last_round_eval_syncs,
+            upload_bytes=upload_bytes,
             sched_iterations=self._obs_sched_iters))
 
     # ------------------------------------------------------------------
     def evaluate(self, max_batches: int = 20, batch_size: int = 256) -> float:
+        """Test accuracy over the first ``max_batches`` batches, under an
+        ``eval`` span; each batch's predictions are one host pull
+        (``last_round_eval_syncs``)."""
         correct = total = 0
-        for i in range(0, min(len(self.test), max_batches * batch_size),
-                       batch_size):
-            x = self.test.inputs[i:i + batch_size]
-            y = self.test.labels[i:i + batch_size]
-            pred = self._eval_batch(self.params, self.make_batch(x, y))
-            correct += int((pred.cpu().numpy() == y).sum())
-            total += len(y)
+        with self._eval_obs.span("eval", **self._eval_tags):
+            for i in range(0, min(len(self.test), max_batches * batch_size),
+                           batch_size):
+                x = self.test.inputs[i:i + batch_size]
+                y = self.test.labels[i:i + batch_size]
+                pred = self._eval_fn(self.params, self.make_batch(x, y))
+                correct += int((pred.cpu().numpy() == y).sum())
+                self.last_round_eval_syncs += 1
+                total += len(y)
         return float(correct) / max(total, 1)
 
     def run(self, num_rounds: int, verbose: bool = False) -> List[Dict]:

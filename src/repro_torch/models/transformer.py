@@ -46,6 +46,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
+from repro_torch.obs import DISABLED
 from repro_torch.sharding import (as_dtensor, constrain, matmul,
                                   partial_where_split, sharded_scope)
 
@@ -533,18 +534,29 @@ def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0,
         return _loss_fn(params, cfg, batch, label_smoothing, ctx)
 
 
-def _loss_fn(params, cfg, batch, label_smoothing, ctx):
+def _loss_fn(params, cfg, batch, label_smoothing, ctx, obs=DISABLED):
+    """``loss_fn`` inside the sharded scope.  With a live ``obs`` the trunk
+    and the head run under ``lm.trunk`` / ``lm.head`` spans, and a
+    gradient hook on the trunk's output splits an enclosing
+    ``lm.backward`` span where the head's backward ends."""
     S = batch["targets"].shape[1]
     big = S * cfg.vocab_size > (1 << 24)
-    if big and not cfg.unroll_for_costing:
+    device = batch["targets"].device if obs.enabled else None
+    with obs.device_span("lm.trunk", device):
         x, aux, _ = _forward_hidden(params, cfg, batch, False, 0, ctx)
-        loss = _chunked_ce(params, cfg, x, batch["targets"],
-                           batch.get("loss_mask"), label_smoothing, ctx=ctx)
-    else:
-        logits, aux, _ = _forward(params, cfg, batch, False, 0, ctx)
-        loss = L.softmax_cross_entropy(logits, batch["targets"],
-                                       batch.get("loss_mask"),
-                                       label_smoothing)
+    if obs.enabled and x.requires_grad:
+        x.register_hook(obs.tracer.split_hook("lm.backward", "lm.head_bwd",
+                                              "lm.trunk_bwd"))
+    with obs.device_span("lm.head", device):
+        if big and not cfg.unroll_for_costing:
+            loss = _chunked_ce(params, cfg, x, batch["targets"],
+                               batch.get("loss_mask"), label_smoothing,
+                               ctx=ctx)
+        else:
+            loss = L.softmax_cross_entropy(_head(params, cfg, x, ctx),
+                                           batch["targets"],
+                                           batch.get("loss_mask"),
+                                           label_smoothing)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 

@@ -10,29 +10,41 @@ records ``n`` rounds under ``torch.profiler`` and writes the trace to
 
 What it returns is the trace directory, as a ``str``, carrying what the
 trace shows (``Profile``): the wall time of the profiled rounds, the
-device's busy time (kernels and copies, summed) and its share of the wall
-time, the device-op count, the device time and count of each kernel and,
-where the trainer's ``obs`` spans give the
-round's phases, the same split per phase (each span also opens a
-``torch.profiler.record_function`` range, ``obs:<name>``; the profiler
-marks on the device's timeline the stretch from the first to the last
-device op launched inside it, and a phase's device numbers are those of
-the ops run within its stretches and those of the spans nested in it).
-The device time is the ops' summed time: where ops overlap (on other
-streams), a busy share can pass 1.  On a CPU trainer no device is traced:
-the device numbers are None.  The profiler reads nothing back from the
-device besides its own trace, so the rounds make the host pulls they
-make unprofiled (tracing the host's ops as well as the device's slows
-the host, so the wall time is longer than an unprofiled round's); with
-observability disabled there are no spans and no phase split, and the
-trainer is left untouched.
+device's busy time (the union of its kernels', copies' and sets'
+intervals, so ops that overlap on other streams count once) and its
+share of the wall time, the device-op count, the device time and count
+of each kernel and, where live ``obs`` spans give the round's phases,
+the same split per phase.  While the profiler records, every live span
+opens a ``record_function`` range, ``obs:<name>`` (``obs.tracing``); the
+profiler marks on the device's timeline the stretch from the first to
+the last device op launched inside it, and a phase's device numbers are
+the union of the ops run within its stretches and those of the spans
+nested in it.  On a CPU trainer no device is traced: the device numbers
+are None.  The profiler reads nothing back from the device besides its
+own trace, so the rounds make the host pulls they make unprofiled
+(tracing the host's ops as well as the device's slows the host, so the
+wall time is longer than an unprofiled round's); with observability
+disabled there are no spans and no phase split, and the trainer is left
+untouched.
 """
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Dict, Optional, Tuple, Union
+
+
+def _union_us(ranges) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, None
+    for s, e in sorted(ranges):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
 
 
 class Profile(str):
@@ -61,7 +73,7 @@ def profile_rounds(trainer, n: int, outdir: Union[str, os.PathLike],
     in flight.  Returns the trace directory (a ``Profile``)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
@@ -75,40 +87,29 @@ def profile_rounds(trainer, n: int, outdir: Union[str, os.PathLike],
     cuda = device.type == "cuda"
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
-    obs = getattr(trainer, "obs", None)
-    spans = obs is not None and obs.enabled
-    if spans:
-        span = obs.span
-
-        @contextlib.contextmanager
-        def traced_span(name, **tags):
-            with record_function(f"obs:{name}"), span(name, **tags) as s:
-                yield s
-        obs.span = traced_span          # shadows the method on this facade
-    try:
+    if cuda:
+        torch.cuda.synchronize(device)
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.run_round(j)
+            j += 1
         if cuda:
             torch.cuda.synchronize(device)
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                trainer.run_round(j)
-                j += 1
-            if cuda:
-                torch.cuda.synchronize(device)
-            wall_us = (time.perf_counter() - t0) * 1e6
-    finally:
-        if spans:
-            del obs.span
+        wall_us = (time.perf_counter() - t0) * 1e6
     prof.export_chrome_trace(os.path.join(outdir, "trace.json"))
 
     out = Profile(outdir)
     out.wall_ms = wall_us / 1e3
     out.device_ms = out.device_ops = out.busy_share = None
     out.kernels, out.phases = {}, {}
+    events = prof.events()
+    # the device's own events (kernels, copies, sets): not the CPU ops
+    # that launched them, nor the device-side ranges of the spans, whose
+    # device time is the same time again
+    ops = [(e.time_range.start, e.time_range.end) for e in events
+           if e.device_type != DeviceType.CPU and not e.is_user_annotation]
     if cuda:
-        # the device's own events (kernels, copies, sets): not the CPU ops
-        # that launched them, nor the device-side ranges of the spans,
-        # whose device time is the same time again
         dev = sorted((e for e in prof.key_averages()
                       if e.device_type != DeviceType.CPU
                       and not e.is_user_annotation
@@ -116,16 +117,15 @@ def profile_rounds(trainer, n: int, outdir: Union[str, os.PathLike],
                      key=lambda e: -e.self_device_time_total)
         out.kernels = {e.key: (e.self_device_time_total / 1e3, e.count)
                        for e in dev}
-        busy = sum(e.self_device_time_total for e in dev)
+        busy = _union_us(ops)
         out.device_ms = busy / 1e3
-        out.device_ops = sum(e.count for e in dev)
+        out.device_ops = len(ops)
         out.busy_share = busy / wall_us
     # the round's phases: the outermost spans other than "round" (prep,
     # core, ...); a nested span (solve_many.<backend>) counts for the
     # phase that holds it.  The profiler marks on the device's timeline
     # the stretch of each span's own device ops; a stretch belongs to the
     # latest span of its name that started before it.
-    events = prof.events()
     ranges = sorted(((e.name[4:], e.time_range.start, e.time_range.end,
                       e.cpu_time_total) for e in events
                      if e.name.startswith("obs:")
@@ -144,9 +144,6 @@ def profile_rounds(trainer, n: int, outdir: Union[str, os.PathLike],
                 "busy_share": None})
             ph["wall_ms"] += cpu_us / 1e3
     if cuda:
-        ops = [e.time_range for e in events
-               if e.device_type != DeviceType.CPU
-               and not e.is_user_annotation]
         stretches: Dict[str, list] = {}
         for e in events:
             if (e.name.startswith("obs:") and e.device_type != DeviceType.CPU
@@ -160,10 +157,10 @@ def profile_rounds(trainer, n: int, outdir: Union[str, os.PathLike],
                         (lo, e.time_range.end))
         for name, ph in out.phases.items():
             # an op counts once, in however many of the phase's stretches
-            inside = [t.elapsed_us() for t in ops
-                      if any(lo <= t.start and t.end <= hi
+            inside = [(s, e) for s, e in ops
+                      if any(lo <= s and e <= hi
                              for lo, hi in stretches.get(name, ()))]
-            ph["device_ms"] = sum(inside) / 1e3
+            ph["device_ms"] = _union_us(inside) / 1e3
             ph["device_ops"] = len(inside)
     for ph in out.phases.values():
         if ph["device_ms"] is not None and ph["wall_ms"] > 0:

@@ -287,7 +287,9 @@ def test_obs_records_phases_and_syncs(world):
     assert sorted((r["round"], r["cell"]) for r in recs
                   if r["kind"] == "round") == [(0, 0), (0, 1), (1, 0),
                                                (1, 1)]
-    assert mc.obs.metrics.counters["calls.round_core"].value == 2
+    assert mc.obs.metrics.counters["fl.rounds_total"].value == 2
+    # round 0 evaluates each of the 2 cells (eval_every=2)
+    assert mc.obs.metrics.histograms["span.eval"].count == 2
 
 
 # ---------------------------------------------------------------------------

@@ -182,7 +182,9 @@ def test_obs_records_and_sync_contract(micro_world):
                                     "finalize"}
         assert sum(r["phases"].values()) <= r["round_s"]
     c = tt.obs.metrics.counters
-    assert c["calls.round_core"].value == 3
+    assert c["fl.rounds_total"].value == 3
+    # evaluations in rounds 0 and 2 (eval_every=2)
+    assert tt.obs.metrics.histograms["span.eval"].count == 2
     assert c["sched.solve_many_calls.torch"].value == 3
 
 
