@@ -6,11 +6,11 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
   1. builds the port's kernels from the sources in this checkout: the
-     six CUDA C++ sources (``wemd``, ``persample_gradnorm``,
-     ``flash_attention``, ``flash_attention_bwd``, ``wkv``,
-     ``rglru_scan``, which also holds the RG-LRU backward) with one nvcc
-     each, all at once; prints ptxas's registers, spills and warnings for
-     the kernels of every source;
+     eight CUDA C++ sources (``wemd``, ``persample_gradnorm``,
+     ``flash_attention``, ``flash_attention_bwd``, ``wkv``, ``wkv_bwd``,
+     ``rglru_scan``, which also holds the RG-LRU backward, and
+     ``head_split``) with one nvcc each, all at once; prints ptxas's
+     registers, spills and warnings for the kernels of every source;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
      round's shapes (``wemd_*`` to 1e-5 on f32 and on f64 inputs, the f64
@@ -38,7 +38,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      states) against the plain backward in f64 at the rwkv6-3b train
      shape [16, 256, 40, 64], at T = 250 and at hd 128: on each gradient
      at most ``WKV_BWD_ERR_MULT`` (16) times the f32 plain version's
-     error, two calls bitwise equal;
+     error, two calls bitwise equal; and the head's split (K7) bitwise
+     equal to its plain version at the rwkv6-3b head chunk with f32's
+     edge values, at a ragged shape and off alignment, two calls bitwise
+     equal;
   3. solves 100 seeded random P1 problems with the torch scheduler on the
      card (25 at each of V = 16 and 64 for C = 10 and C = 100) and
      requires the numpy solvers' masks and iteration counts;
@@ -126,7 +129,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      norm finite; a round launches recurrentgemma-2b's attention and
      RG-LRU kernels 16 and 36 times (the forward and its recompute) and
      their backward kernels 8 and 18 times, rwkv6-3b's WKV kernel 64
-     times and its backward 32 times, nothing else; a second run on the
+     times and its backward 32 times, and each the head's split (K7,
+     the bf16 head's backward) once, nothing else; a second run on the
      same seed bitwise equal (metrics, masks, params); one plain
      ``make_train_step`` step, and one profiled through
      ``repro_torch.obs.profile_rounds``; peak memory logged.  Before each:
@@ -142,8 +146,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      (frame embeddings), qwen3-moe-235b-a22b (5 of 94) and arctic-480b
      (1 of 35) with one round and the twin (``ZOO_TRAIN``).  A round
      launches K4 twice and K4-bwd once an attention layer, self and
-     cross, and nothing else (``train_step_launches``, worked out from
-     each config's layers); the MoE models' twins hold the fixed-order
+     cross, K7 once, and nothing else (``train_step_launches``, worked
+     out from each config's layers); the MoE models' twins hold the fixed-order
      MoE backward; each round's model-FLOP share of the bf16 peak
      (``repro_torch.roofline.model_flops``) is logged, and the peak must
      stay under ``ZOO_TRAIN_PEAK_GIB``.  Then K4-bwd against its plain
@@ -184,7 +188,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      llama-3.2-vision-11b's cross layers, and attention's backward at the
      zoo's train shapes, rows ``attention_bwd@<arch>/<kind>`` for
      qwen2-7b (GQA group 7), qwen3-moe-235b-a22b (group 16) and
-     llama-3.2-vision-11b's cross layers)
+     llama-3.2-vision-11b's cross layers, and the head's split at the
+     benchmark's rwkv6-3b head chunk, ``HEAD_CHUNK``)
      beside its plain version, one
      library call where one computes the same function (``cdist`` for
      the WEMD scans, ``scaled_dot_product_attention`` under the window
@@ -202,7 +207,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      also the rate over the visible pairs (``tflops``); for attention's
      backward the time with each part count of the GQA sum
      (``parts_ms``) and the device time of each of its launches
-     (``device_kernels``); for every kernel the share of the bound
+     (``device_kernels``); for the head's split the head's three
+     products there as f32 and as the bf16 route (``products_ms``,
+     ``head_products``); for every kernel the share of the bound
      (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
@@ -246,11 +253,17 @@ TPU_KERNELS = {
     "attention_bwd": "src/repro/kernels/flash_attention.py:77",
     "rglru_bwd": "src/repro/kernels/rglru_scan.py:50",
     "wkv_bwd": "src/repro/kernels/rwkv_scan.py:75",
+    # the LM head's f32 product on the bf16 tensor cores: the JAX package
+    # leaves that product to XLA, so the split replaces no TPU kernel
+    "head_split": "none (the f32 LM head's cotangent split into three "
+                  "bf16 terms)",
 }
+# kernels launched by the train step alone, timed at its shapes
+TRAIN_KERNELS = ("attention_bwd", "rglru_bwd", "wkv_bwd", "head_split")
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
 # the kernels' symbols in a profiler trace
 PORT_KERNEL_SYMBOLS = ("wemd_", "psg_kernel", "flash_", "wkv_chunked",
-                       "rglru_scan", "attn_bwd_", "wkv_bwd_")
+                       "rglru_scan", "attn_bwd_", "wkv_bwd_", "head_split_")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("cuda", CSRC + "wemd.cu"),
@@ -262,6 +275,7 @@ SOURCES = {
     "attention_bwd": ("cuda", CSRC + "flash_attention_bwd.cu"),
     "rglru_bwd": ("cuda", CSRC + "rglru_scan.cu"),
     "wkv_bwd": ("cuda", CSRC + "wkv_bwd.cu"),
+    "head_split": ("cuda", CSRC + "head_split.cu"),
 }
 # K5-bwd against the plain backward in f64: on each gradient the kernel's
 # max abs error at most WKV_BWD_ERR_MULT times the f32 plain version's
@@ -294,6 +308,9 @@ BF16_CONSISTENCY = {"recurrentgemma-2b": (0.01, 0.035),
 LM_DEPTHS = {"recurrentgemma-2b": (3, 6, 12, 24),
              "rwkv6-3b": (1, 2, 4, 8, 16)}
 F32_CONSISTENCY = 2e-3          # tests/test_models_smoke.py's bound
+# the benchmark cell's rwkv6-3b head chunk, [M, K] x [K, N]: 16 sequences x
+# CE_CHUNK positions, d_model 2560, vocab 65536
+HEAD_CHUNK = (16 * 512, 2560, 65536)
 # the prefill step's last-position logits vs the full forward's: one trunk,
 # the f32 head GEMM at M = B rows against M = B S (tests/test_torch_lm.py's
 # f32 logit tolerance)
@@ -478,6 +495,10 @@ def bound(name, shapes, itemsize=4):
         f32_ops, tc_ops = (B * H * nch * x for x in wkv_bwd_chunk_ops(hd))
         ops, rate = max((f32_ops, F32_FLOPS), (tc_ops, TF32_FLOPS),
                         key=lambda x: x[0] / x[1])
+    elif name == "head_split":
+        # reads the f32 cotangent, writes its three bf16 terms
+        (M, N), = shapes
+        nbytes, ops = 10 * M * N, 0
     elif name == "attention":
         (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
         nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
@@ -658,19 +679,20 @@ def phase_build(torch, dev):
 
     from repro_torch.kernels import common
     from repro_torch.kernels import flash_attention as K4
+    from repro_torch.kernels import head_split as K7
     from repro_torch.kernels import persample_gradnorm as K3
     from repro_torch.kernels import rglru_scan as K6
     from repro_torch.kernels import rwkv_scan as K5
     from repro_torch.kernels import wemd_swap as K12
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:     # one nvcc per source, at once
+    with ThreadPoolExecutor(8) as pool:     # one nvcc per source, at once
         for f in [pool.submit(fn) for fn in (K12._launchers, K3._launcher,
                                              K4._launcher, K4._bwd_launcher,
                                              K5._launcher, K5._bwd_launcher,
-                                             K6._launcher)]:
+                                             K6._launcher, K7._launcher)]:
             f.result()
     K6._bwd_launcher()                      # rglru_scan.cu's second entry
-    log(f"build: nvcc of 7 sources in parallel "
+    log(f"build: nvcc of 8 sources in parallel "
         f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
             f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items()) + ")")
     log("ptxas, wemd.cu: " + ptxas_summary(
@@ -683,7 +705,7 @@ def phase_build(torch, dev):
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
     for src in ("flash_attention_bwd.cu", "wkv.cu", "wkv_bwd.cu",
-                "rglru_scan.cu", "persample_gradnorm.cu"):
+                "rglru_scan.cu", "persample_gradnorm.cu", "head_split.cu"):
         log(f"ptxas, {src}: "
             + ptxas_summary(common.BUILD_LOGS.get(src, "")))
 
@@ -726,6 +748,10 @@ def ptxas_summary(text: str) -> str:
                 name = f"attention bwd {aw[1]} bf16 wgmma hd{aw[2]}"
             elif "attn_bwd_gqa_sum" in line:
                 name = "attention bwd GQA sum"
+            elif "head_split_vec" in line:
+                name = "head_split 16-byte groups"
+            elif "head_split_scalar" in line:
+                name = "head_split one element a step"
             elif p:
                 name = (f"psg int{64 if p[1] == 'x' else 32} labels, "
                         f"{'16-byte' if p[2] == '1' else '4-byte'} h")
@@ -764,6 +790,7 @@ def phase_kernel_checks(torch, dev):
         close("persample_gradnorm.gi_sq", gi, gr, 1e-2, 1e-3)
     psg_checks(torch, dev, close)
     lm_kernel_checks(torch, dev, close)
+    head_split_checks(torch, dev)
     log("kernels vs plain: " + ", ".join(
         f"{k} max abs err {v:.3g}" for k, v in worst.items()))
 
@@ -984,6 +1011,38 @@ def wkv_bwd_checks(torch, dev):
             f"plain version's " + ", ".join(
                 f"{k} {v:.2f}" for k, v in ratios.items())
             + f" (bound {WKV_BWD_ERR_MULT}); two calls bitwise equal")
+
+
+def head_split_checks(torch, dev):
+    """K7 against its plain version, bitwise, at the rwkv6-3b head chunk's
+    cotangent with f32's edge values written over its first entries
+    (ties, tiny and subnormal values, infinities, NaN, -0), at a ragged
+    shape (the one-element path) and off 16-byte alignment; two calls
+    bitwise equal."""
+    from repro_torch.kernels.head_split import head_split_cuda, split3_ref
+    M, _, N = HEAD_CHUNK
+    edges = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                          float("nan"), 1e-40, -1e-45, 2.0 ** -110,
+                          2.0 ** -111 * 1.5, 3e38, 1.0 + 2.0 ** -8,
+                          1.0 + 3 * 2.0 ** -8, 1.0 + 2.0 ** -16,
+                          1.0 + 2.0 ** -8 + 2.0 ** -17], device=dev)
+    for shape, offset in (((M, N), 0), ((999, 5003), 0), ((64, 1024), 1)):
+        g = torch.Generator(device=dev).manual_seed(sum(shape))
+        n = shape[0] * shape[1]
+        buf = torch.randn(n + offset, generator=g, device=dev)
+        buf.mul_(torch.exp2(torch.randint(-120, 100, (n + offset,),
+                                          generator=g, device=dev).float()))
+        buf[offset:offset + edges.numel()] = edges
+        d = buf[offset:].view(shape)
+        got, again = head_split_cuda(d), head_split_cuda(d)
+        want = split3_ref(d)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                f"head_split at {shape}: not bitwise its plain version")
+        require(torch.equal(got.view(torch.int16), again.view(torch.int16)),
+                f"head_split at {shape}: two calls differ")
+    log("head_split at [8192, 65536], [999, 5003] and off alignment: "
+        "bitwise its plain version, two calls bitwise equal")
 
 
 def rglru_checks(torch, dev, close):
@@ -2073,11 +2132,12 @@ def zoo_checks(torch, model, params, batch, P, C, rows):
     always ``trunk_same`` (the prefill step's logits bitwise the head on
     the forward's last row alone), ``norm_diff`` (the bf16 elements of the
     final norm's last row that differ between ``ZOO_HEAD_ROWS`` rows and
-    1) and ``gemm_err`` (the head's f32 GEMM over ``ZOO_HEAD_ROWS`` rows
+    1) and ``gemm_err`` (the head's f32 product over ``ZOO_HEAD_ROWS`` rows
     against over 1 on the same normed rows, max over scale)."""
     from repro_torch.fl.distributed import make_prefill_step, make_serve_step
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
+    from repro_torch.sharding import matmul
     cfg = model.cfg
     prefill = make_prefill_step(cfg, cache_len=P + 8)
     with DropCount(torch, cfg) as drops, torch.no_grad():
@@ -2097,13 +2157,13 @@ def zoo_checks(torch, model, params, batch, P, C, rows):
         full = T._head(params, cfg, x[:, -ZOO_HEAD_ROWS:])[:, -1]
         one = T._head(params, cfg, x[:, -1:])[:, 0]
         # the head's two steps apart: its final norm's last row over
-        # ZOO_HEAD_ROWS rows and over 1 (bf16 outputs), and its f32 GEMM
-        # over ZOO_HEAD_ROWS rows and over 1 on the same normed rows
+        # ZOO_HEAD_ROWS rows and over 1 (bf16 outputs), and its f32
+        # product (``_head``'s) over ZOO_HEAD_ROWS rows and over 1 on the
+        # same normed rows
         norm = L.rms_norm(params["final_norm"], x[:, -ZOO_HEAD_ROWS:])
-        w = (params["embed"].T if cfg.tie_embeddings
-             else params["lm_head"]).to(torch.float32)
-        gemm_gap = ((norm.to(torch.float32) @ w)[:, -1]
-                    - (norm[:, -1:].to(torch.float32) @ w)[:, 0])
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        gemm_gap = (matmul(norm, w, out_dtype=torch.float32)[:, -1]
+                    - matmul(norm[:, -1:], w, out_dtype=torch.float32)[:, 0])
         norm_diff = int((norm[:, -1:] != L.rms_norm(params["final_norm"],
                                                     x[:, -1:])).sum())
     scale = max(1.0, float(full.abs().max()))
@@ -2417,15 +2477,23 @@ def _rel_l2(torch, got, want):
 
 def train_step_launches(cfg):
     """The launches of one train step of ``cfg`` (at the depth it trains
-    at): ``TRAIN_STEP_LAUNCHES`` for phase 8's models; for the zoo's, K4
-    twice and K4-bwd once a layer that runs attention (global, local and
-    cross)."""
+    at, ``TRAIN_SEQ`` positions): ``TRAIN_STEP_LAUNCHES`` for phase 8's
+    models; for the zoo's, K4 twice and K4-bwd once a layer that runs
+    attention (global, local and cross); and for a bf16 config the head's
+    split (K7) once a head chunk (one at ``TRAIN_SEQ``, whole or in one
+    chunk of ``CE_CHUNK``)."""
     from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN
+    from repro_torch.models.transformer import CE_CHUNK
     if cfg.name in TRAIN_STEP_LAUNCHES:
-        return TRAIN_STEP_LAUNCHES[cfg.name]
-    n = sum(cfg.layer_kind(i) in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN)
-            for i in range(cfg.num_layers))
-    return {"attention": 2 * n, "attention_bwd": n}
+        out = dict(TRAIN_STEP_LAUNCHES[cfg.name])
+    else:
+        n = sum(cfg.layer_kind(i) in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN)
+                for i in range(cfg.num_layers))
+        out = {"attention": 2 * n, "attention_bwd": n}
+    if cfg.dtype == cfg.param_dtype == "bfloat16":
+        big = TRAIN_SEQ * cfg.vocab_size > 1 << 24
+        out["head_split"] = -(-TRAIN_SEQ // CE_CHUNK) if big else 1
+    return out
 
 
 def train_params(torch, cfg, gen):
@@ -3190,6 +3258,13 @@ def timing_case(torch, dev, name, shp):
         return (lambda: wkv_bwd_cuda(r, k, v, w, u, chunks, dy, ds),
                 lambda: ref.wkv_bwd_ref(r, k, v, w, u, s0, dy, ds), None,
                 tols, 4)
+    if name == "head_split":       # bitwise its plain version
+        from repro_torch.kernels.head_split import head_split_cuda, split3_ref
+        (M, N), = shp
+        g = torch.Generator(device=dev).manual_seed(95)
+        d = torch.randn((M, N), generator=g, device=dev) / (M * N)
+        return (lambda: head_split_cuda(d), lambda: split3_ref(d), None,
+                (0.0, 0.0), 4)
     if name == "rglru_bwd":
         from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
         (B, T, D), = shp
@@ -3322,6 +3397,41 @@ def attention_f32_check(torch, dev, shp):
     return float(err.max())
 
 
+def head_products(torch, dev):
+    """The head's three products at ``HEAD_CHUNK`` (forward, dx, dW), as
+    the f32 product on the CUDA cores and as the route on the bf16 tensor
+    cores (dx and dW from the split's three terms; the split is timed in
+    its own row): K7's library yardstick, ms a call by CUDA events, and
+    the TFLOP/s of each (2 M K N an operand pass, three for the
+    route's backward)."""
+    from repro_torch.kernels import head_split as HS
+    M, K, N = HEAD_CHUNK
+    g = torch.Generator(device=dev).manual_seed(96)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=g, device=dev)
+         / K ** 0.5).to(torch.bfloat16)
+    d = torch.randn((M, N), generator=g, device=dev) / (M * N)
+    xf, wf = x.float(), w.float()
+    terms = HS.head_split_cuda(d)
+    calls = {"f32": {"forward": lambda: xf @ wf, "dx": lambda: d @ wf.t(),
+                     "dw": lambda: xf.t() @ d},
+             "route": {"forward": lambda: HS.logits(x, w),
+                       "dx": lambda: HS.grad_x(terms, w),
+                       "dw": lambda: HS.grad_w(x, terms)}}
+    out = {route: {k: time_ms(torch, fn) for k, fn in fns.items()}
+           for route, fns in calls.items()}
+
+    def tflops(route, k, ms):
+        passes = 3 if route == "route" and k != "forward" else 1
+        return passes * 2 * M * K * N / ms / 1e9
+    log(f"head products at {HEAD_CHUNK}: " + "; ".join(
+        f"{route} " + ", ".join(
+            f"{k} {ms:.3f} ms ({tflops(route, k, ms):.0f} TFLOP/s)"
+            for k, ms in t.items()) for route, t in out.items()))
+    del x, w, d, xf, wf, terms
+    return out
+
+
 def phase_timing(torch, dev, cases, prof_ok):
     """One row a case (row name, kernel name, shapes, launches): the
     kernel timed at the shapes beside its plain version, library call
@@ -3377,6 +3487,9 @@ def phase_timing(torch, dev, cases, prof_ok):
         b_ms, b_by = bound(name, shp, itemsize)
         route, src = SOURCES[name]
         kernels = device_kernels(torch, kern) if prof_ok else None
+        for _ in range(2):      # a trace late in the run may hold no records
+            if prof_ok and not kernels:
+                kernels = device_kernels(torch, kern)
         if name == "attention_bwd" and prof_ok:
             kernels = attention_bwd_trace(torch, kern, kernels)
         row = {"name": row_name, "route": route, "source": src,
@@ -3395,6 +3508,8 @@ def phase_timing(torch, dev, cases, prof_ok):
         if name == "persample_gradnorm":
             row["path_ms"] = time_ms(torch, psg_path(torch, dev, shp,
                                                      prof_ok))
+        if name == "head_split":
+            row["products_ms"] = head_products(torch, dev)
         if name == "attention_bwd":
             # the GQA sum's part counts, and the time of each launch
             row["parts_ms"] = attention_bwd_parts(torch, dev, shp)
@@ -3482,10 +3597,12 @@ def main() -> int:
         f"{sharded}")
     t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
-             for name in TPU_KERNELS if not name.endswith("_bwd")]
-    # the training phase: the backward kernels at the train step's shapes
+             for name in TPU_KERNELS if name not in TRAIN_KERNELS]
+    # the training phase: the backward kernels at the train step's shapes,
+    # the head's split at the benchmark cell's head chunk
+    tr_shapes["head_split"] = (HEAD_CHUNK[::2],)
     cases += [(name, name, tr_shapes[name], tr_launches[name])
-              for name in ("attention_bwd", "rglru_bwd", "wkv_bwd")]
+              for name in TRAIN_KERNELS]
     cases += [(f"{name}@C{MC_CELLS}", name, mc_shapes[name],
                mc_launches[name]) for name in FL_KERNELS]
     # the ResNet phase: K1/K2 over 100 classes, K3 at d = 512 (one cell,

@@ -13,6 +13,10 @@
                          repro/kernels/rwkv_scan.py)
   rglru_scan.py          CUDA C++: RG-LRU diagonal recurrence (replaces
                          repro/kernels/rglru_scan.py), and its backward
+  head_split.py          CUDA C++ (csrc/head_split.cu): the LM head's f32
+                         product on the bf16 tensor cores, its f32
+                         cotangent split into three bf16 terms (replaces
+                         no TPU kernel)
 
 ops.py dispatches on the tensor's device (and holds the autograd
 Functions that pair a kernel with its backward); ref.py holds the plain

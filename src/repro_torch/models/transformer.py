@@ -432,7 +432,7 @@ def _head(params, cfg: ModelConfig, x, ctx=None):
           if RWKV in cfg.block_pattern
           else L.rms_norm(params["final_norm"], x))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = matmul(xn.to(torch.float32), head.to(torch.float32))
+    logits = matmul(xn, head, out_dtype=torch.float32)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = torch.tanh(logits / c) * c

@@ -41,6 +41,8 @@ import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ShardingCtx:
@@ -184,9 +186,15 @@ def partial_where_split(split, whole) -> list:
             else w for s, w in zip(split, whole)]
 
 
-def matmul(x, w):
+def matmul(x, w, out_dtype=None):
     """``x @ w`` for x [..., K] and w [K, N] (``_mm``); for DTensors each
     rank multiplies its local shards.
+
+    With ``out_dtype`` the product is taken in that type (the LM head's
+    f32): bf16 operands on the card go to
+    ``kernels.head_split.HeadMatmulFn`` (the bf16 tensor cores, every
+    product exact, summed in f32); any other operands are cast to
+    ``out_dtype`` first, as the caller's own casts would.
 
     DTensor's own product flattens x's leading dims, and where two of
     them are sharded (a batch and a sequence) the flattened dim is a
@@ -198,8 +206,12 @@ def matmul(x, w):
     on N) or is gathered.  The gradients' placements follow (a whole w
     read by ranks with their own tokens gets a partial-sum gradient; a
     whole x read by ranks with their own columns too)."""
+    exact = (out_dtype == torch.float32 and x.is_cuda and w.is_cuda
+             and x.dtype == w.dtype == torch.bfloat16)
+    if out_dtype is not None and not exact:
+        x, w = x.to(out_dtype), w.to(out_dtype)
     if not is_dtensor(x) and not is_dtensor(w):
-        return _mm(x, w)
+        return _mm(x, w, exact)
     from torch.distributed.tensor import (DTensor, Partial, Replicate,
                                           Shard)
     mesh = (x if is_dtensor(x) else w).device_mesh
@@ -232,19 +244,26 @@ def matmul(x, w):
             wg.append(Replicate())
     if tuple(w.placements) != tuple(wt):
         w = w.redistribute(mesh, wt)
-    y = _mm(x.to_local(grad_placements=xg), w.to_local(grad_placements=wg))
+    y = _mm(x.to_local(grad_placements=xg), w.to_local(grad_placements=wg),
+            exact)
     shape = tuple(x.shape[:-1]) + (w.shape[1],)
     return DTensor.from_local(y, mesh, out, shape=shape,
                               stride=_contiguous_strides(shape),
                               run_check=False)
 
 
-def _mm(x, w):
+def _mm(x, w, exact=False):
     """x [..., K] @ w [K, N] as one [tokens, K] @ [K, N] product: how
     ``torch.matmul`` folds a contiguous x, here for every x, so that the
-    plain and the sharded routes run the same product."""
-    return (x.reshape(-1, x.shape[-1]) @ w).reshape(*x.shape[:-1],
-                                                     w.shape[-1])
+    plain and the sharded routes run the same product.  ``exact``: bf16
+    operands to an f32 product through ``HeadMatmulFn``."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if exact:
+        from repro_torch.kernels.head_split import HeadMatmulFn
+        y = HeadMatmulFn.apply(x2, w)
+    else:
+        y = x2 @ w
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def _contiguous_strides(shape):
