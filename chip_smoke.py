@@ -174,6 +174,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      collective bytes, peak and the roofline's bottleneck logged, and
      qwen2-7b's counted FLOPs x devices over 6 N D within
      ``DRYRUN_RATIO``;
+ 8d. moonlight-16b-a3b's latent attention at the benchmark cell
+     ``moonlight-silos``'s shape (``phase_mla``, ``MLA_SHAPE``: q and k
+     [8, 16, 4096, 192], v [8, 16, 4096, 128], causal, scale
+     1/sqrt(192)): K4 and K4-bwd at the (192, 128) pair on bf16 and f32
+     against their plain versions (``BF16_ATTN_TOL``, ``F32_ATTN_TOL``);
+     one federated train step of the cell's cut (``MLA_CUT``: experts
+     0-7 of 64, 20480 ids; all 27 layers) over 8 x 4096 tokens, its
+     launches ``train_step_launches`` at that length and K4 / K4-bwd at
+     ``MLA_SHAPE`` alone, a second step from the same seed bitwise equal;
   9. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes, the backward kernels at the
      train step's (K5-bwd from the forward's chunk states, no library
@@ -188,7 +197,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      llama-3.2-vision-11b's cross layers, and attention's backward at the
      zoo's train shapes, rows ``attention_bwd@<arch>/<kind>`` for
      qwen2-7b (GQA group 7), qwen3-moe-235b-a22b (group 16) and
-     llama-3.2-vision-11b's cross layers, and the head's split at the
+     llama-3.2-vision-11b's cross layers, attention and its backward at
+     ``MLA_SHAPE`` with phase 8d's launches, rows
+     ``attention@moonlight-16b-a3b`` and ``attention_bwd@...``, and the
+     head's split at the
      benchmark's rwkv6-3b head chunk, ``HEAD_CHUNK``)
      beside its plain version, one
      library call where one computes the same function (``cdist`` for
@@ -222,6 +234,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -392,15 +405,29 @@ def sigma_f64(torch, h, logits, labels):
                       .mean(-1))
 
 
-def attn_inputs(torch, B, H, KV, S, T, hd, dtype, seed, device):
-    """q [B,H,S,hd] and k, v [B,KV,T,hd] as views of [B,S,H,hd] memory,
-    the layout the model hands the kernel."""
+def attn_inputs(torch, B, H, KV, S, T, hd, dtype, seed, device, hdv=None):
+    """q [B,H,S,hd], k [B,KV,T,hd] and v [B,KV,T,hdv] (hdv: hd unless
+    given) as views of [B,S,H,.] memory, the layout the model hands the
+    kernel."""
     g = torch.Generator(device=device).manual_seed(seed)
 
-    def draw(n, heads):
-        return torch.randn((B, n, heads, hd), generator=g, device=device,
+    def draw(n, heads, width=hd):
+        return torch.randn((B, n, heads, width), generator=g, device=device,
                            dtype=dtype).transpose(1, 2)
-    return draw(S, H), draw(T, KV), draw(T, KV)
+    return draw(S, H), draw(T, KV), draw(T, KV, hdv or hd)
+
+
+def attn_dims(shp):
+    """(B, H, S, hd, KV, T, hdv, kw) of an attention shape key, laid out
+    as ``common.SHAPES`` keys it: q's shape, k's, (causal, window), and
+    v's where its head size is not q's (a head pair); ``kw`` the kernel's
+    mask keywords, with the scale 1/sqrt(hd) given at a head pair, as
+    ``models/mla.py`` gives it."""
+    (B, H, S, hd), (_, KV, T, _), (causal, window), *vs = shp
+    kw = dict(causal=bool(causal), window=window)
+    if vs:
+        kw["scale"] = 1.0 / math.sqrt(hd)
+    return B, H, S, hd, KV, T, (vs[0][3] if vs else hd), kw
 
 
 def wkv_inputs(torch, B, T, H, hd, seed, device):
@@ -471,11 +498,13 @@ def bound(name, shapes, itemsize=4):
     from repro_torch.roofline import F32_FLOPS, HBM_BW, PEAK_FLOPS, TF32_FLOPS
     rate = F32_FLOPS
     if name == "attention_bwd":
-        # reads q, k, v, dO, writes dq, dk, dv; s, dP, dq, dk and dv take
-        # 2 hd FLOPs each a visible pair
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
-        nbytes = itemsize * (3 * B * H * S * hd + 4 * B * KV * T * hd)
-        ops = 10 * hd * B * H * visible_pairs(S, T, causal, window)
+        # reads q, k, v, dO, writes dq, dk, dv; s, dq and dk take 2 hd
+        # FLOPs each a visible pair, dP and dv 2 hdv (v's head size)
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shapes)
+        nbytes = itemsize * (B * H * S * (2 * hd + hdv)
+                             + 2 * B * KV * T * (hd + hdv))
+        ops = 2 * (3 * hd + 2 * hdv) * B * H * visible_pairs(
+            S, T, kw["causal"], kw["window"])
         rate = PEAK_FLOPS if itemsize == 2 else F32_FLOPS
     elif name == "rglru_bwd":
         # reads a, h, dh [B,T,D] and h0, dh_T [B,D], writes da, db and dh0;
@@ -500,9 +529,11 @@ def bound(name, shapes, itemsize=4):
         (M, N), = shapes
         nbytes, ops = 10 * M * N, 0
     elif name == "attention":
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shapes
-        nbytes = itemsize * (2 * B * H * S * hd + 2 * B * KV * T * hd)
-        ops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
+        # s takes 2 hd FLOPs a visible pair, the output 2 hdv
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shapes)
+        nbytes = itemsize * (B * H * S * (hd + hdv) + B * KV * T * (hd + hdv))
+        ops = 2 * (hd + hdv) * B * H * visible_pairs(S, T, kw["causal"],
+                                                     kw["window"])
         rate = PEAK_FLOPS if itemsize == 2 else F32_FLOPS
     elif name == "wkv":
         (B, T, H, hd), = shapes
@@ -651,16 +682,15 @@ def attention_bwd_parts(torch, dev, shp):
     sum (a divisor of the group), by CUDA events, after holding each to
     the default part count's output at the bf16 tolerance."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
-    (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
-    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 96, dev)
-    do = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 97, dev)[0]
-    base = flash_attention_bwd_cuda(q, k, v, do, causal=bool(causal),
-                                    window=window)
+    B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
+    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 96, dev,
+                          hdv)
+    do = attn_inputs(torch, B, H, KV, S, T, hdv, torch.bfloat16, 97, dev)[0]
+    base = flash_attention_bwd_cuda(q, k, v, do, **kw)
     out = {}
     for parts in [p for p in range(1, H // KV + 1) if (H // KV) % p == 0]:
         def call(parts=parts):
-            return flash_attention_bwd_cuda(q, k, v, do, causal=bool(causal),
-                                            window=window, parts=parts)
+            return flash_attention_bwd_cuda(q, k, v, do, parts=parts, **kw)
         for g, w in zip(call(), base):
             require(bool(torch.allclose(g.float(), w.float(),
                                         atol=BF16_ATTN_TOL[0],
@@ -2390,15 +2420,14 @@ def zoo_attention_checks(torch, dev, shapes):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     for shp, archs in sorted(shapes.items()):
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
         errs = []
         for dtype, (atol, rtol) in ((torch.bfloat16, BF16_ATTN_TOL),
                                     (torch.float32, F32_ATTN_TOL)):
-            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 88, dev)
-            got = flash_attention_cuda(q, k, v, causal=bool(causal),
-                                       window=window)
-            want = ref.attention_ref(q, k, v, causal=bool(causal),
-                                     window=window)
+            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 88, dev,
+                                  hdv)
+            got = flash_attention_cuda(q, k, v, **kw)
+            want = ref.attention_ref(q, k, v, **kw)
             err = (got.float() - want.float()).abs()
             errs.append(float(err.max()))
             require(bool((err <= atol + rtol * want.float().abs()).all()),
@@ -2475,24 +2504,27 @@ def _rel_l2(torch, got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def train_step_launches(cfg):
+def train_step_launches(cfg, seq=TRAIN_SEQ):
     """The launches of one train step of ``cfg`` (at the depth it trains
-    at, ``TRAIN_SEQ`` positions): ``TRAIN_STEP_LAUNCHES`` for phase 8's
-    models; for the zoo's, K4 twice and K4-bwd once a layer that runs
-    attention (global, local and cross); and for a bf16 config the head's
-    split (K7) once a head chunk (one at ``TRAIN_SEQ``, whole or in one
-    chunk of ``CE_CHUNK``)."""
-    from repro_torch.configs.base import CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN
+    at, ``seq`` positions): ``TRAIN_STEP_LAUNCHES`` for phase 8's
+    models; for the zoo's and moonlight-16b-a3b, K4 twice and K4-bwd once
+    a layer that runs attention (global, local, cross and latent); and
+    for a bf16 config the head's split (K7) once a head chunk (the whole
+    sequence where seq x vocab is at most 2**24, else chunks of
+    ``CE_CHUNK``)."""
+    from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN,
+                                          LOCAL_ATTN, MLA, MLA_DENSE)
     from repro_torch.models.transformer import CE_CHUNK
     if cfg.name in TRAIN_STEP_LAUNCHES:
         out = dict(TRAIN_STEP_LAUNCHES[cfg.name])
     else:
-        n = sum(cfg.layer_kind(i) in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN)
+        n = sum(cfg.layer_kind(i) in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN,
+                                      MLA, MLA_DENSE)
                 for i in range(cfg.num_layers))
         out = {"attention": 2 * n, "attention_bwd": n}
     if cfg.dtype == cfg.param_dtype == "bfloat16":
-        big = TRAIN_SEQ * cfg.vocab_size > 1 << 24
-        out["head_split"] = -(-TRAIN_SEQ // CE_CHUNK) if big else 1
+        big = seq * cfg.vocab_size > 1 << 24
+        out["head_split"] = -(-seq // CE_CHUNK) if big else 1
     return out
 
 
@@ -3010,13 +3042,13 @@ def zoo_attention_bwd_checks(torch, dev, shapes):
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
     for shp, archs in sorted(shapes.items()):
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
         errs = []
         for dtype, (atol, rtol) in ((torch.bfloat16, BF16_ATTN_TOL),
                                     (torch.float32, F32_ATTN_TOL)):
-            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 86, dev)
-            do = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 87, dev)[0]
-            kw = dict(causal=bool(causal), window=window)
+            q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, dtype, 86, dev,
+                                  hdv)
+            do = attn_inputs(torch, B, H, KV, S, T, hdv, dtype, 87, dev)[0]
             got = flash_attention_bwd_cuda(q, k, v, do, **kw)
             again = flash_attention_bwd_cuda(q, k, v, do, **kw)
             want = ref.attention_bwd_ref(q, k, v, do, **kw)
@@ -3201,6 +3233,96 @@ def _leaves(tree):
         yield tree
 
 
+# phase 8d, moonlight-16b-a3b as the benchmark cell ``moonlight-silos``
+# trains it: one chip's share (experts 0-7 of each MoE layer's 64, ids
+# 0-20479 of the 163840), all 27 layers at published width, bf16 with
+# remat, 8 sequences of 4096 tokens.  Its attention: q and k [8, 16,
+# 4096, 192] (nope 128 | rope 64), v [8, 16, 4096, 128], causal, scale
+# 1/sqrt(192): K4 and K4-bwd at the (192, 128) head pair
+MLA_CUT = {"experts_held": 8, "vocab_size": 20480}
+MLA_BATCH, MLA_SEQ = 8, 4096
+MLA_SHAPE = ((MLA_BATCH, 16, MLA_SEQ, 192), (MLA_BATCH, 16, MLA_SEQ, 192),
+             (1, 0), (MLA_BATCH, 16, MLA_SEQ, 128))
+
+
+def phase_mla(torch, dev):
+    """Phase 8d: K4 and K4-bwd at ``MLA_SHAPE`` on seeded bf16 and f32
+    inputs against their plain versions (``zoo_attention_checks``,
+    ``zoo_attention_bwd_checks``: ``BF16_ATTN_TOL`` and ``F32_ATTN_TOL``,
+    two backward calls bitwise equal); then one federated train step of
+    the cell's configuration (weights from ``transformer.init`` on a
+    seeded generator, token rows from a seed, every row weighted), its
+    loss, grad norm and MoE counters finite and its launches
+    ``train_step_launches`` at ``MLA_SEQ``, K4 and K4-bwd launched at
+    ``MLA_SHAPE`` alone; a second step from the same seed bitwise equal
+    (loss, grad norm, counters, every param).  Returns the step's
+    launches at ``MLA_SHAPE``: {"attention": n, "attention_bwd": n}."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.fl.distributed import make_train_step
+    from repro_torch.kernels import common
+    from repro_torch.models import transformer as T
+    zoo_attention_checks(torch, dev, {MLA_SHAPE: ["moonlight-16b-a3b"]})
+    zoo_attention_bwd_checks(torch, dev, {MLA_SHAPE: ["moonlight-16b-a3b"]})
+    cfg = dataclasses.replace(get_config("moonlight-16b-a3b"), **MLA_CUT)
+    g = torch.Generator(device=dev).manual_seed(31)
+    toks = torch.randint(0, cfg.vocab_size, (MLA_BATCH, MLA_SEQ + 1),
+                         generator=g, device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "schedule_weights": torch.ones(MLA_BATCH, device=dev)}
+    step = make_train_step(cfg, eta=0.05, federated=True)
+
+    def run():
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = T.init(torch.Generator(device=dev).manual_seed(32), cfg)
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = step(params, batch)
+        met = {k: v.clone() for k, v in met.items()}
+        torch.cuda.synchronize()
+        return (new, met, 1e3 * (time.perf_counter() - t0),
+                dict(common.LAUNCHES),
+                {k: dict(common.SHAPES[k])
+                 for k in ("attention", "attention_bwd")})
+
+    torch.cuda.reset_peak_memory_stats()
+    params, met, ms, launches, shapes = run()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = sum(x.numel() for _, x in _paths(params))
+    last = cfg.expert_lo + cfg.num_held - 1
+    log(f"{cfg.name} (experts {cfg.expert_lo}-{last} of {cfg.num_experts}, "
+        f"vocab {cfg.vocab_size}) federated "
+        f"train step over {MLA_BATCH} x {MLA_SEQ} tokens, {n / 1e9:.3f} B "
+        f"params: {ms:.2f} ms (the first, with its kernels' first calls), "
+        + ", ".join(f"{k} {float(v):.6g}" for k, v in met.items())
+        + f"; launches {launches}, K4 / K4-bwd by shape {shapes}; peak "
+        f"memory {peak:.2f} GiB")
+    want = train_step_launches(cfg, MLA_SEQ)
+    require(launches == want, f"{cfg.name}: launches {launches}, want {want}")
+    require(shapes == {k: {MLA_SHAPE: want[k]}
+                       for k in ("attention", "attention_bwd")},
+            f"{cfg.name}: K4 / K4-bwd launched at {shapes}, not at "
+            f"{MLA_SHAPE} alone")
+    require(all(bool(torch.isfinite(v)) for v in met.values())
+            and int(met["moe_tokens_held"]) > 0,
+            f"{cfg.name}: a metric is not finite, or no held assignment")
+    first = {k: x.cpu() for k, x in _paths(params)}
+    del params
+    params, met2, ms2, _, _ = run()
+    same = all(torch.equal(met[k], met2[k]) for k in met) and all(
+        torch.equal(first[k], x.cpu()) for k, x in _paths(params))
+    log(f"{cfg.name} second step from the same seed: {ms2:.2f} ms; "
+        f"bitwise equal: {same}")
+    require(same, f"{cfg.name}: two steps from one seed differ")
+    del params, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: want[k] for k in ("attention", "attention_bwd")}
+
+
 def timing_case(torch, dev, name, shp):
     """(kernel call, plain call, library call or None, tolerance, bytes
     per element) for one kernel at shapes ``shp``.  For attention the
@@ -3220,10 +3342,10 @@ def timing_case(torch, dev, name, shp):
     if name == "attention_bwd":    # at the model's dtype, bf16
         from repro_torch.kernels.flash_attention import (
             flash_attention_bwd_cuda)
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
         q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 96,
-                              dev)
-        do = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 97,
+                              dev, hdv)
+        do = attn_inputs(torch, B, H, KV, S, T, hdv, torch.bfloat16, 97,
                          dev)[0]
         # the library yardstick: SDPA's backward alone (its forward is run
         # once, outside the timed call), over the key heads repeated to
@@ -3232,14 +3354,10 @@ def timing_case(torch, dev, name, shp):
                   (q, *(y.repeat_interleave(H // KV, dim=1) for y in (k, v)))]
         with torch.enable_grad():
             out = F.scaled_dot_product_attention(
-                *leaves, attn_mask=window_mask(torch, S, T, causal, window,
-                                               dev))
-        return (lambda: flash_attention_bwd_cuda(q, k, v, do,
-                                                 causal=bool(causal),
-                                                 window=window),
-                lambda: ref.attention_bwd_ref(q, k, v, do,
-                                              causal=bool(causal),
-                                              window=window),
+                *leaves, attn_mask=window_mask(torch, S, T, kw["causal"],
+                                               kw["window"], dev))
+        return (lambda: flash_attention_bwd_cuda(q, k, v, do, **kw),
+                lambda: ref.attention_bwd_ref(q, k, v, do, **kw),
                 lambda: torch.autograd.grad(out, leaves, do,
                                             retain_graph=True),
                 [BF16_ATTN_TOL] * 3, 2)
@@ -3277,15 +3395,13 @@ def timing_case(torch, dev, name, shp):
                 lambda: ref.rglru_bwd_ref(*args), None,
                 [(da_tol, 1e-5), (1e-5, 1e-5), (1e-5, 1e-5)], 4)
     if name == "attention":        # at the model's dtype, bf16
-        (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
+        B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
         q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.bfloat16, 92,
-                              dev)
+                              dev, hdv)
         kx, vx = (x.repeat_interleave(H // KV, dim=1) for x in (k, v))
-        mask = window_mask(torch, S, T, causal, window, dev)
-        return (lambda: flash_attention_cuda(q, k, v, causal=bool(causal),
-                                             window=window),
-                lambda: ref.attention_ref(q, k, v, causal=bool(causal),
-                                          window=window),
+        mask = window_mask(torch, S, T, kw["causal"], kw["window"], dev)
+        return (lambda: flash_attention_cuda(q, k, v, **kw),
+                lambda: ref.attention_ref(q, k, v, **kw),
                 lambda: F.scaled_dot_product_attention(q, kx, vx,
                                                        attn_mask=mask),
                 BF16_ATTN_TOL, 2)
@@ -3384,10 +3500,11 @@ def attention_f32_check(torch, dev, shp):
     plain version; returns the max abs error."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    (B, H, S, hd), (_, KV, T, _), (causal, window) = shp
-    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.float32, 95, dev)
-    got = flash_attention_cuda(q, k, v, causal=bool(causal), window=window)
-    want = ref.attention_ref(q, k, v, causal=bool(causal), window=window)
+    B, H, S, hd, KV, T, hdv, kw = attn_dims(shp)
+    q, k, v = attn_inputs(torch, B, H, KV, S, T, hd, torch.float32, 95, dev,
+                          hdv)
+    got = flash_attention_cuda(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs()
     require(bool((err <= F32_ATTN_TOL[0]
@@ -3520,10 +3637,11 @@ def phase_timing(torch, dev, cases, prof_ok):
         t = row["device_ms"] or ms
         row["bound_share"] = b_ms / t
         if name == "attention":
-            # the rate over the visible pairs (4 hd FLOPs each), from the
-            # device time (else ms)
-            (B, H, S, hd), (_, _, T, _), (causal, window) = shp
-            flops = 4 * hd * B * H * visible_pairs(S, T, causal, window)
+            # the rate over the visible pairs (2 (hd + hdv) FLOPs each),
+            # from the device time (else ms)
+            B, H, S, hd, _, T, hdv, kw = attn_dims(shp)
+            flops = 2 * (hd + hdv) * B * H * visible_pairs(
+                S, T, kw["causal"], kw["window"])
             row["tflops"] = flops / t / 1e9
             log(f"attention bf16 at {shp}: {row['tflops']:.1f} TFLOP/s over "
                 f"the visible pairs; library {lib_ms:.4f} ms")
@@ -3596,6 +3714,9 @@ def main() -> int:
     log(f"[sharded] done in {time.perf_counter() - t0:.2f} s; launches "
         f"{sharded}")
     t0 = time.perf_counter()
+    mla_launches = phase_mla(torch, dev)
+    log(f"[latent attention] done in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
              for name in TPU_KERNELS if name not in TRAIN_KERNELS]
     # the training phase: the backward kernels at the train step's shapes,
@@ -3623,6 +3744,9 @@ def main() -> int:
               for arch, kind in (("qwen2-7b", "global"),
                                  ("qwen3-moe-235b-a22b", "global"),
                                  ("llama-3.2-vision-11b", "cross"))]
+    # moonlight-16b-a3b's step: K4 and K4-bwd at the (192, 128) pair
+    cases += [(f"{name}@moonlight-16b-a3b", name, MLA_SHAPE, n)
+              for name, n in mla_launches.items()]
     rows = phase_timing(torch, dev, cases, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")

@@ -1,6 +1,8 @@
 """Config registry: ``--arch <id>`` resolution for the ten LM
 architectures of the JAX package (each config a copy of its
-``repro/configs`` file) plus the paper's own vision models."""
+``repro/configs`` file, ``list_archs``), the port's own
+``moonlight-16b-a3b`` (``PORT_ONLY``; ``port_archs`` lists all eleven)
+and the paper's own vision models."""
 from repro_torch.configs.base import ModelConfig, TrainConfig  # noqa: F401
 from repro_torch.configs.paper_cnn import (CNNConfig,  # noqa: F401
                                            PAPER_CNN_CIFAR10,
@@ -8,6 +10,8 @@ from repro_torch.configs.paper_cnn import (CNNConfig,  # noqa: F401
 from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
 from repro_torch.configs.gemma3_27b import CONFIG as GEMMA3_27B
 from repro_torch.configs.llama32_vision_11b import CONFIG as LLAMA32_VISION_11B
+from repro_torch.configs.moonlight_16b_a3b import (  # noqa: F401
+    CONFIG as MOONLIGHT_16B_A3B, MLAConfig)
 from repro_torch.configs.moonshot_v1_16b_a3b import (
     CONFIG as MOONSHOT_V1_16B_A3B)
 from repro_torch.configs.musicgen_large import CONFIG as MUSICGEN_LARGE
@@ -25,6 +29,9 @@ ARCHITECTURES = {
                 MUSICGEN_LARGE, LLAMA32_VISION_11B]
 }
 
+# configurations of the port that the JAX package does not have
+PORT_ONLY = {MOONLIGHT_16B_A3B.name: MOONLIGHT_16B_A3B}
+
 CNN_MODELS = {
     PAPER_CNN_CIFAR10.name: PAPER_CNN_CIFAR10,
     RESNET18_GN_CIFAR100.name: RESNET18_GN_CIFAR100,
@@ -32,13 +39,18 @@ CNN_MODELS = {
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in ARCHITECTURES:
-        raise KeyError(
-            f"unknown arch {arch!r}; available: {sorted(ARCHITECTURES)}")
-    cfg = ARCHITECTURES[arch]
+    cfg = ARCHITECTURES.get(arch) or PORT_ONLY.get(arch)
+    if cfg is None:
+        raise KeyError(f"unknown arch {arch!r}; available: {port_archs()}")
     cfg.validate()
     return cfg
 
 
 def list_archs():
+    """The JAX package's ten architectures."""
     return sorted(ARCHITECTURES)
+
+
+def port_archs():
+    """Every LM architecture the port runs: the ten and ``PORT_ONLY``."""
+    return sorted({**ARCHITECTURES, **PORT_ONLY})

@@ -24,6 +24,11 @@ LOCAL_ATTN = "local"        # sliding-window causal attention
 CROSS_ATTN = "cross"        # cross-attention to encoder states (VLM)
 RECURRENT = "recurrent"     # RG-LRU block (Griffin)
 RWKV = "rwkv"               # RWKV6 time-mix block
+# latent attention (models/mla.py), then the sigmoid-routed MoE over held
+# experts, or a dense SwiGLU of ``dense_ff`` (a leading layer); the kinds
+# of ``configs/moonlight_16b_a3b.MLAConfig``, which the JAX package lacks
+MLA = "mla"
+MLA_DENSE = "mla_dense"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +90,14 @@ class ModelConfig:
     # training head: number of label classes for FL classification tasks;
     # 0 means next-token prediction over vocab_size.
     num_label_classes: int = 0
+
+    # Not fields (the JAX package's configs carry none; a subclass sets
+    # its own): the kind of one layer run before the stacked periods
+    # (``params["first"]``), whether the embeddings are scaled by
+    # sqrt(d_model), the final RMSNorm's eps.
+    first_kind = None
+    embed_scale = True
+    norm_eps = 1e-6
 
     # ------------------------------------------------------------------
     @property
@@ -154,7 +167,8 @@ class ModelConfig:
         if self.num_experts:
             assert 0 < self.experts_per_token <= self.num_experts, self.name
         for kind in self.block_pattern:
-            assert kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN, RECURRENT, RWKV)
+            assert kind in (GLOBAL_ATTN, LOCAL_ATTN, CROSS_ATTN, RECURRENT, RWKV,
+                            MLA)
         if LOCAL_ATTN in self.block_pattern:
             assert self.window_size > 0, self.name
 

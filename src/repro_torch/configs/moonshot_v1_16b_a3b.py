@@ -2,6 +2,14 @@
 i.e. MHA) expert d_ff=1408 vocab=163840, MoE 64 experts top-6 with
 DeepSeek-V3-style shared experts. [hf:moonshotai/Moonlight-16B-A3B]
 
+This mirrors the JAX package's config field for field (the tests hold it
+so) and is not the published model it cites.  It departs from
+Moonlight-16B-A3B in its layers (48, not 27), its attention (plain
+multi-head with 128-wide heads, not latent attention), its first layer
+(MoE, not dense) and its routing (softmax top-k with capacity drops, not
+sigmoid scores with a bias-corrected, drop-free choice).  The published
+architecture is ``moonlight-16b-a3b`` (``configs/moonlight_16b_a3b.py``).
+
 Assumption noted in DESIGN.md: Moonlight uses 2 shared experts and a dense
 first layer; we keep 2 shared experts and make every layer MoE (uniform
 pattern keeps the scanned dry-run HLO small; parameter count deviates <1%).

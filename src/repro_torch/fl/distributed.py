@@ -31,7 +31,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.estimation import tree_leaves, tree_map, tree_norm
 from repro_torch.models import transformer as T
-from repro_torch.obs import DEFAULT, DISABLED
+from repro_torch.obs import DEFAULT, DISABLED, LayerTrace
 from repro_torch.sharding import is_dtensor, sharded_scope
 
 
@@ -69,20 +69,32 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
     ``lm.update`` (gradients, norm, SGD), each with a CUDA event at both
     ends on the card (``SpanRecord.device_s``).  Not live, the step
     registers no hook, records no event and reads no clock.
+
+    The layers report to an ``obs.LayerTrace``; latent-attention layers
+    (moonlight-16b-a3b) add their spans (``lm.mla``, ``lm.moe`` and
+    theirs under ``lm.trunk`` and the recompute, ``lm.mla_bwd`` and
+    ``lm.moe_bwd`` under ``lm.trunk_bwd``) and, with held experts, two
+    more metrics, device tensors:
+    ``moe_tokens_held`` (the assignments to held experts, summed over the
+    MoE layers) and ``moe_load_max`` (the largest held expert's count in
+    the step's worst layer).  ``train_step(params, batch, routing=[])``
+    appends each MoE layer's expert choices [B S, k] (int16) to the
+    list.
     """
     if obs is None:
         obs = DEFAULT
 
-    def train_step(params, batch):
+    def train_step(params, batch, routing=None):
         with sharded_scope(ctx):
             if not obs.enabled:
-                return _train_step(params, batch, DISABLED)
+                return _train_step(params, batch, DISABLED, routing)
             device = batch["targets"].device
             with obs.device_span("lm.step", device):
-                return _train_step(params, batch, obs)
+                return _train_step(params, batch, obs, routing)
 
-    def _train_step(params, batch, obs):
+    def _train_step(params, batch, obs, routing):
         device = batch["targets"].device if obs.enabled else None
+        trace = LayerTrace(obs, batch["targets"].device, routing)
         p = {k: tree_map(_leaf, v) for k, v in params.items()
              if k != "blocks"}
         if "blocks" in params:
@@ -101,7 +113,8 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
                 else torch.ones((w.shape[0], S), dtype=torch.float32,
                                 device=w.device))
         with torch.enable_grad():
-            total, metrics = T._loss_fn(p, cfg, lm_batch, 0.0, ctx, obs)
+            total, metrics = T._loss_fn(p, cfg, lm_batch, 0.0, ctx, obs,
+                                        trace)
             with obs.device_span("lm.backward", device):
                 total.backward()
         with torch.no_grad(), obs.device_span("lm.update", device):
@@ -113,6 +126,11 @@ def make_train_step(cfg: ModelConfig, eta: float = 0.1,
             new = tree_map(lambda x, g: _sgd(x, g, eta), params, grads)
         metrics = {k: _full(v.detach()) for k, v in metrics.items()}
         metrics.update(loss=_full(total.detach()), grad_norm=_full(gnorm))
+        if trace.moe:
+            metrics["moe_tokens_held"] = torch.stack(
+                [h for h, _ in trace.moe]).sum()
+            metrics["moe_load_max"] = torch.stack(
+                [m for _, m in trace.moe]).max()
         return new, metrics
 
     return train_step

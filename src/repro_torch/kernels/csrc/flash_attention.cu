@@ -78,6 +78,21 @@
 // Shared memory is 99 KB at hd = 256, acc 64 registers a thread.  It is
 // bound by the 67 TFLOP/s f32 rate.
 //
+// Head sizes.  q and k share one head size HD and v and o have HDV: HD =
+// HDV in 32, 64, 128 and 256, and the pair HD 192, HDV 128, added for
+// latent attention (MLA, moonlight-16b-a3b: q and k are [nope 128 | rope
+// 64], v 128, the scale 1/sqrt(192)).  Both routes are templates over
+// the pair; an HD = HDV instance compiles the code it compiled before.  At
+// the pair the tensor-core route keeps Q in three column blocks (48 KB),
+// a stage of K and V in 24 + 16 KB, 129 KB in all, and O in two column
+// blocks (64 registers a thread, as at hd 128); S = Q K^T takes 12 k-steps
+// where hd 128 takes 8, and P V the same 8 instructions a key tile.  It is
+// bound by operations as the equal sizes are: 2 (HD + HDV) = 640 FLOPs a
+// visible pair, 6.9e11 a layer at the train step (B 8, H 16, S = T =
+// 4096, causal: 1.07e9 visible pairs), 0.69 ms at the bf16 rate, against
+// 0.67 GB of inputs and output (0.2 ms).  The f32 route keeps Q and K rows
+// of HD + 4 floats and V rows of HDV (66 KB).
+//
 // Plain C interface, loaded with ctypes.  The launcher makes `device`
 // current for the launch and restores the caller's device after it, and
 // returns cudaGetLastError() (or -1 for a head size or dtype it does not
@@ -116,23 +131,24 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((kBQ + kBK) * (HD + 4) + kBK * HD);
+  return sizeof(float) * ((kBQ + kBK) * (HD + 4) + kBK * HDV);
 }
 
-template <int HD>
+// HD: the head size of q and k, HDV: that of v and o
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int H,
              int group, int S, int Tk, Strides qs, Strides ks, Strides vs,
              Strides os, int causal, int window, int off, float scale) {
   constexpr int KP = HD + 4;  // padded row of the Q and K tiles
-  constexpr int NC = HD / 32; // output columns per lane
+  constexpr int NC = HDV / 32; // output columns per lane
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;            // [kBQ][KP]
   float* k_s = q_s + kBQ * KP;  // [kBK][KP]
-  float* v_s = k_s + kBK * KP;  // [kBK][HD]
+  float* v_s = k_s + kBK * KP;  // [kBK][HDV]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, hk = h / group;
   const int q0 = blockIdx.x * kBQ;
@@ -171,11 +187,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = (k_begin / kBK) * kBK; kt < k_end; kt += kBK) {
     __syncthreads();  // the previous tile has been consumed
-    for (int idx = tid; idx < kBK * HD; idx += kThreads) {
-      const int r = idx / HD, d = idx - r * HD;
-      const bool in = kt + r < Tk;
-      k_s[r * KP + d] = in ? kb[(kt + r) * ks.s + d] : 0.f;
-      v_s[r * HD + d] = in ? vb[(kt + r) * vs.s + d] : 0.f;
+    if constexpr (HD == HDV) {
+      for (int idx = tid; idx < kBK * HD; idx += kThreads) {
+        const int r = idx / HD, d = idx - r * HD;
+        const bool in = kt + r < Tk;
+        k_s[r * KP + d] = in ? kb[(kt + r) * ks.s + d] : 0.f;
+        v_s[r * HD + d] = in ? vb[(kt + r) * vs.s + d] : 0.f;
+      }
+    } else {
+      for (int idx = tid; idx < kBK * HD; idx += kThreads) {
+        const int r = idx / HD, d = idx - r * HD;
+        k_s[r * KP + d] = kt + r < Tk ? kb[(kt + r) * ks.s + d] : 0.f;
+      }
+      for (int idx = tid; idx < kBK * HDV; idx += kThreads) {
+        const int r = idx / HDV, d = idx - r * HDV;
+        v_s[r * HDV + d] = kt + r < Tk ? vb[(kt + r) * vs.s + d] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -217,7 +244,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < kBK; ++j) {
       float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = v_s[j * HD + lane + 32 * c];
+      for (int c = 0; c < NC; ++c) vv[c] = v_s[j * HDV + lane + 32 * c];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const float pr = __shfl_sync(0xffffffffu, s[r], j);
@@ -238,20 +265,20 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int window, int off, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<HD, HDV>();
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<HD, HDV><<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H,
       H / KV, S, Tk, qs, ks, vs, os, causal, window, off, scale);
   return (int)cudaGetLastError();
@@ -268,24 +295,27 @@ constexpr int kThreads = 256;
 
 // Shared memory: every tile is kept in 128-byte column blocks of 64
 // elements (hd 32 takes one block, half of it unused), each block R rows
-// of 128 bytes.
-template <int HD>
+// of 128 bytes.  HD is the head size of q and k, HDV that of v and o.
+template <int HD, int HDV>
 struct Tiles {
   static constexpr int kBlocks = HD < 64 ? 1 : HD / 64;
+  static constexpr int kVBlocks = HDV < 64 ? 1 : HDV / 64;
   static constexpr int kQBytes = kBM * kBlocks * 128;
-  static constexpr int kKVBytes = kBN * kBlocks * 128;  // one K or V tile
+  static constexpr int kKBytes = kBN * kBlocks * 128;   // one K tile
+  static constexpr int kVBytes = kBN * kVBlocks * 128;  // one V tile
+  static constexpr int kStage = kKBytes + kVBytes;
   // Q, two stages of K and V, and room to align the start to 1024 bytes
-  static constexpr int kSmem = kQBytes + 4 * kKVBytes + 1024;
+  static constexpr int kSmem = kQBytes + 2 * kStage + 1024;
 };
 
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, bf16* __restrict__ o, int H,
             int group, int S, int Tk, Strides qs, Strides ks, Strides vs,
             Strides os, int causal, int window, int off, float scale) {
-  using L = Tiles<HD>;
-  constexpr int NB = L::kBlocks;
+  using L = Tiles<HD, HDV>;
+  constexpr int NB = L::kVBlocks;  // output column blocks
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t q_s = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t kv_s = q_s + L::kQBytes;  // stage j: K, then V
@@ -314,8 +344,8 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<HD, kBM, kThreads>(q_s, qb, qs.s, q0, S);
   if (n > 0) {
     load_tile<HD, kBN, kThreads>(kv_s, kb, ks.s, t0 * kBN, Tk);
-    load_tile<HD, kBN, kThreads>(kv_s + L::kKVBytes, vb, vs.s, t0 * kBN,
-                                 Tk);
+    load_tile<HDV, kBN, kThreads>(kv_s + L::kKBytes, vb, vs.s, t0 * kBN,
+                                  Tk);
   }
   cp_commit();
 
@@ -332,16 +362,16 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int it = 0; it < n; ++it) {
     const int kt = (t0 + it) * kBN;
-    const uint32_t k_st = kv_s + (it & 1) * 2 * L::kKVBytes;
-    const uint32_t v_st = k_st + L::kKVBytes;
+    const uint32_t k_st = kv_s + (it & 1) * L::kStage;
+    const uint32_t v_st = k_st + L::kKBytes;
     cp_wait_all();  // this thread's copies of tile it (and of Q)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // everyone's copies; tile it - 1 fully consumed
     if (it + 1 < n) {
-      const uint32_t nxt = kv_s + ((it + 1) & 1) * 2 * L::kKVBytes;
+      const uint32_t nxt = kv_s + ((it + 1) & 1) * L::kStage;
       load_tile<HD, kBN, kThreads>(nxt, kb, ks.s, kt + kBN, Tk);
-      load_tile<HD, kBN, kThreads>(nxt + L::kKVBytes, vb, vs.s, kt + kBN,
-                                   Tk);
+      load_tile<HDV, kBN, kThreads>(nxt + L::kKBytes, vb, vs.s, kt + kBN,
+                                    Tk);
     }
     cp_commit();
 
@@ -439,24 +469,25 @@ flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int i = 0; i < 32; i += 2) {
       const int hh = (i >> 1) & 1, r = row + 8 * hh;
       const int col = cb * 64 + 8 * (i >> 2) + 2 * (lane & 3);
-      if (r < S && col < HD)
+      if (r < S && col < HDV)
         *reinterpret_cast<__nv_bfloat162*>(ob + r * os.s + col) =
             __floats2bfloat162_rn(acc[cb][i] / den[hh],
                                   acc[cb][i + 1] / den[hh]);
     }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
            Strides os, int causal, int window, int off, float scale,
            cudaStream_t stream) {
-  constexpr int smem = Tiles<HD>::kSmem;
+  constexpr int smem = Tiles<HD, HDV>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_wgmma<HD, HDV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kBM - 1) / kBM, B * H);
-  flash_wgmma<HD><<<grid, kThreads, smem, stream>>>(
+  flash_wgmma<HD, HDV><<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, H, H / KV,
       S, Tk, qs, ks, vs, os, causal, window, off, scale);
   return (int)cudaGetLastError();
@@ -464,46 +495,42 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace tc
 
-// the f32 route (DT = 0) or the bf16 route (DT = 1) at head size HD
-template <int DT, int HD>
+// the f32 route (DT = 0) or the bf16 route (DT = 1) at head sizes HD (q,
+// k) and HDV (v, o)
+template <int DT, int HD, int HDV>
 int route(const void* q, const void* k, const void* v, void* o, int B, int H,
           int KV, int S, int Tk, Strides qs, Strides ks, Strides vs,
           Strides os, int causal, int window, int off, float scale,
           cudaStream_t st) {
   if constexpr (DT == 0)
-    return launch<HD>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, causal,
-                      window, off, scale, st);
+    return launch<HD, HDV>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
+                           causal, window, off, scale, st);
   else
-    return tc::launch<HD>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os, causal,
-                        window, off, scale, st);
+    return tc::launch<HD, HDV>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
+                               causal, window, off, scale, st);
 }
 
 template <int DT>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+int dispatch_hd(int hd, int hdv, const void* q, const void* k, const void* v,
                 void* o, int B, int H, int KV, int S, int Tk, Strides qs,
                 Strides ks, Strides vs, Strides os, int causal, int window,
                 int off, float scale, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return route<DT, 32>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                           causal, window, off, scale, st);
-    case 64:
-      return route<DT, 64>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                           causal, window, off, scale, st);
-    case 128:
-      return route<DT, 128>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                            causal, window, off, scale, st);
-    case 256:
-      return route<DT, 256>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,
-                            causal, window, off, scale, st);
-    default:
-      return -1;
-  }
+#define ATTN_HD(HD, HDV)                                                     \
+  if (hd == HD && hdv == HDV)                                                \
+    return route<DT, HD, HDV>(q, k, v, o, B, H, KV, S, Tk, qs, ks, vs, os,  \
+                              causal, window, off, scale, st);
+  ATTN_HD(32, 32)
+  ATTN_HD(64, 64)
+  ATTN_HD(128, 128)
+  ATTN_HD(256, 256)
+  ATTN_HD(192, 128)
+#undef ATTN_HD
+  return -1;
 }
 
 template <int HD>
 int smem_of(int dtype) {
-  return dtype == 0 ? (int)smem_bytes<HD>() : tc::Tiles<HD>::kSmem;
+  return dtype == 0 ? (int)smem_bytes<HD, HD>() : tc::Tiles<HD, HD>::kSmem;
 }
 
 }  // namespace
@@ -529,11 +556,13 @@ extern "C" int flash_attention_smem_bytes(int hd, int dtype) {
 
 // dtype 0 is f32 (CUDA cores), 1 is bf16 (tensor cores; q, k and v
 // 16-byte aligned with row, head and batch strides in multiples of 8);
-// head sizes 32, 64, 128 and 256.  Any other returns -1.  `device` is the
-// tensors' device and `stream` a stream on it.
+// head sizes (hd of q and k, hdv of v and o) 32, 64, 128 and 256 with hdv
+// = hd, and the pair hd 192, hdv 128.  Any other returns -1.  `device` is
+// the tensors' device and `stream` a stream on it.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int KV, int S, int T, int hd, int dtype, long long qsb, long long qsh,
+    int KV, int S, int T, int hd, int hdv, int dtype, long long qsb,
+    long long qsh,
     long long qss, long long ksb, long long ksh, long long kss,
     long long vsb, long long vsh, long long vss, long long osb,
     long long osh, long long oss, int causal, int window, int off,
@@ -548,10 +577,10 @@ extern "C" int flash_attention_launch(
     return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
   const int rc =
-      dtype == 0 ? dispatch_hd<0>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                                  os, causal, window, off, scale, st)
-                 : dispatch_hd<1>(hd, q, k, v, o, B, H, KV, S, T, qs, ks, vs,
-                                  os, causal, window, off, scale, st);
+      dtype == 0 ? dispatch_hd<0>(hd, hdv, q, k, v, o, B, H, KV, S, T, qs, ks,
+                                  vs, os, causal, window, off, scale, st)
+                 : dispatch_hd<1>(hd, hdv, q, k, v, o, B, H, KV, S, T, qs, ks,
+                                  vs, os, causal, window, off, scale, st);
   if (prev != device) {
     const cudaError_t back = cudaSetDevice(prev);
     if (rc == 0 && back != cudaSuccess) return (int)back;

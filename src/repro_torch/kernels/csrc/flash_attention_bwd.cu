@@ -96,6 +96,19 @@
 // from shared memory.  The walks form s and dP three times: 18 hd FLOPs
 // a visible pair on the 67 TFLOP/s f32 units.
 //
+// Head sizes: q, k, dq and dk share HD, v, dO and dv have HDV; HD = HDV
+// in 32, 64, 128 and 256, and the pair HD 192, HDV 128 (latent attention,
+// moonlight-16b-a3b; see csrc/flash_attention.cu).  Both routes are
+// templates over the pair, and an HD = HDV instance compiles the code it
+// compiled before.  At the pair: s and dq over 192, dP and dv over 128;
+// the tensor-core dq pass gives warpgroup 0 two of dq's three column
+// blocks and warpgroup 1 one, and the dk/dv pass keeps dk in three blocks
+// (96 registers a thread) and dv in two; 139 KB of shared memory; one part
+// only (no GQA sum: MLA has a key head a query head).  The f32 route gives
+// a thread columns c + 64 j (j < 3) of 8 rows where 192 does not divide its
+// 256 threads.  Bound by operations: 2 (3 HD + 2 HDV) = 1664 FLOPs a
+// visible pair, 1.8 ms a layer at the train step against 1.3 GB (0.4 ms).
+//
 // Plain C interface, loaded with ctypes.  The launcher makes `device`
 // current for the launches and restores the caller's device after them,
 // and returns cudaGetLastError() (or -1 for a head size, dtype or part
@@ -174,6 +187,65 @@ __device__ __forceinline__ void dots2(const float* A, const float* Bm,
   }
 }
 
+// out[i][j] = A[ty + 16 i] . Bm[tx + 16 j] over HD, summed in d order
+// (the half of dots2 for inputs of their own head size)
+template <int HD>
+__device__ __forceinline__ void dots1(const float* A, const float* Bm,
+                                      int ty, int tx, float s[2][2]) {
+  constexpr int KP = HD + 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 a[2], b[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * KP + d);
+      b[i] = *reinterpret_cast<const float4*>(Bm + (tx + 16 * i) * KP + d);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        s[i][j] += a[i].x * b[j].x + a[i].y * b[j].y + a[i].z * b[j].z +
+                   a[i].w * b[j].w;
+  }
+}
+
+// s from q and k over HD, dP from dO and v over HDV
+template <int HD, int HDV>
+__device__ __forceinline__ void scores(const float* q_s, const float* k_s,
+                                       const float* do_s, const float* v_s,
+                                       int ty, int tx, float s[2][2],
+                                       float p[2][2]) {
+  if constexpr (HD == HDV) {
+    dots2<HD>(q_s, k_s, do_s, v_s, ty, tx, s, p);
+  } else {
+    dots1<HD>(q_s, k_s, ty, tx, s);
+    dots1<HDV>(do_s, v_s, ty, tx, p);
+  }
+}
+
+// Which entries of a [32 rows][W columns] product thread tid of the block
+// keeps: where W divides the block (32, 64, 128, 256), column tid % W and
+// kRows consecutive rows from (tid / W) kRows; W = 192, columns tid % 64 +
+// 64 c (c < 3) and 8 rows from (tid / 64) 8.
+template <int W>
+struct Cols {
+  static constexpr bool kPlain = kThreads % W == 0;
+  static constexpr int kCols = kPlain ? 1 : W / 64;
+  static constexpr int kRows = kBT * W / kThreads / kCols;
+  static_assert(kPlain || W % 64 == 0, "head size");
+  static __device__ __forceinline__ int col(int tid, int c) {
+    return kPlain ? tid % W : tid % 64 + 64 * c;
+  }
+  static __device__ __forceinline__ int row(int tid) {
+    return (kPlain ? tid / W : tid / 64) * kRows;
+  }
+};
+
 // over the 16 lanes of a row group (lanes 0-15 or 16-31 of a warp)
 __device__ __forceinline__ float row_max(float x) {
   for (int o = 8; o > 0; o >>= 1)
@@ -186,33 +258,36 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kBT * (HD + 4) + kBT * kPS);
+  return sizeof(float) * (2 * kBT * (HD + 4) + 2 * kBT * (HDV + 4) +
+                          kBT * kPS);
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (4 * kBT * (HD + 4) + 2 * kBT * kPS + 3 * kBT);
+  return sizeof(float) * (2 * kBT * (HD + 4) + 2 * kBT * (HDV + 4) +
+                          2 * kBT * kPS + 3 * kBT);
 }
 
 // stats: m at [0, n), l at [n, 2n), D at [2n, 3n), n = B * H * S, row
-// (b * H + h) * S + i.
-template <class T, int HD>
+// (b * H + h) * S + i.  HD is the head size of q, k and dq, HDV that of
+// v and dO.
+template <class T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
             T* __restrict__ dq, float* __restrict__ stats, int H, int group,
             int S, int Tk, Strides qs, Strides ks, Strides vs, Strides dos,
             Strides dqs, int causal, int window, int off, float scale) {
-  constexpr int KP = HD + 4;
-  constexpr int RPT = kBT * HD / kThreads;   // rows of dq a thread
+  constexpr int KP = HD + 4, KPV = HDV + 4;
+  using C = Cols<HD>;                        // dq's entries of a thread
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;
   float* do_s = q_s + kBT * KP;
-  float* k_s = do_s + kBT * KP;
+  float* k_s = do_s + kBT * KPV;
   float* v_s = k_s + kBT * KP;
-  float* ds_s = v_s + kBT * KP;              // [32][33]
+  float* ds_s = v_s + kBT * KPV;             // [32][33]
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H, hk = h / group;
   const int q0 = blockIdx.x * kBT;
@@ -222,7 +297,7 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * vs.b + hk * vs.h;
 
   load_tile<T, HD>(q_s, qb, qs.s, q0, S);
-  load_tile<T, HD>(do_s, dob, dos.s, q0, S);
+  load_tile<T, HDV>(do_s, dob, dos.s, q0, S);
 
   const int qp_first = q0 + off;
   const int qp_last = min(q0 + kBT, S) - 1 + off;
@@ -242,10 +317,10 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt0; kt < k_end; kt += kBT) {
     __syncthreads();
     load_tile<T, HD>(k_s, kb, ks.s, kt, Tk);
-    load_tile<T, HD>(v_s, vb, vs.s, kt, Tk);
+    load_tile<T, HDV>(v_s, vb, vs.s, kt, Tk);
     __syncthreads();
     float s[2][2], dp[2][2];
-    dots2<HD>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    scores<HD, HDV>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = q0 + ty + 16 * i + off;
@@ -286,17 +361,19 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // walk 2: dS tile by tile, dq += dS k
-  const int c = tid % HD, rg = tid / HD;
-  float acc[RPT];
+  const int r0 = C::row(tid);
+  float acc[C::kCols][C::kRows];
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
+  for (int c = 0; c < C::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < C::kRows; ++r) acc[c][r] = 0.f;
   for (int kt = kt0; kt < k_end; kt += kBT) {
     __syncthreads();
     load_tile<T, HD>(k_s, kb, ks.s, kt, Tk);
-    load_tile<T, HD>(v_s, vb, vs.s, kt, Tk);
+    load_tile<T, HDV>(v_s, vb, vs.s, kt, Tk);
     __syncthreads();
     float s[2][2], dp[2][2];
-    dots2<HD>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+    scores<HD, HDV>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int qp = q0 + ty + 16 * i + off;
@@ -311,21 +388,26 @@ attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kBT; ++j) {
-      const float kv = k_s[j * KP + c];
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        acc[r] += ds_s[(rg * RPT + r) * kPS + j] * kv;
+      for (int c = 0; c < C::kCols; ++c) {
+        const float kv = k_s[j * KP + C::col(tid, c)];
+#pragma unroll
+        for (int r = 0; r < C::kRows; ++r)
+          acc[c][r] += ds_s[(r0 + r) * kPS + j] * kv;
+      }
     }
   }
   T* dqb = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int row = q0 + rg * RPT + r;
-    if (row < S) put(dqb + row * dqs.s + c, acc[r] * scale);
-  }
+  for (int c = 0; c < C::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < C::kRows; ++r) {
+      const int row = q0 + r0 + r;
+      if (row < S) put(dqb + row * dqs.s + C::col(tid, c), acc[c][r] * scale);
+    }
 }
 
-template <class T, int HD>
+template <class T, int HD, int HDV>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ dout,
@@ -333,14 +415,15 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
              T* __restrict__ dv, int H, int KV, int group, int S, int Tk,
              Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
              Strides dvs, int causal, int window, int off, float scale) {
-  constexpr int KP = HD + 4;
-  constexpr int KPT = kBT * HD / kThreads;   // keys of dk, dv a thread
+  constexpr int KP = HD + 4, KPV = HDV + 4;
+  using CK = Cols<HD>;                       // dk's entries of a thread
+  using CV = Cols<HDV>;                      // dv's
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;
   float* v_s = k_s + kBT * KP;
-  float* q_s = v_s + kBT * KP;
+  float* q_s = v_s + kBT * KPV;
   float* do_s = q_s + kBT * KP;
-  float* p_s = do_s + kBT * KP;              // [32][33]
+  float* p_s = do_s + kBT * KPV;             // [32][33]
   float* ds_s = p_s + kBT * kPS;             // [32][33]
   float* m_s = ds_s + kBT * kPS;             // [32] each
   float* l_s = m_s + kBT;
@@ -352,16 +435,22 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * ks.b + hk * ks.h;
   const T* vb = v + b * vs.b + hk * vs.h;
   load_tile<T, HD>(k_s, kb, ks.s, k0, Tk);
-  load_tile<T, HD>(v_s, vb, vs.s, k0, Tk);
+  load_tile<T, HDV>(v_s, vb, vs.s, k0, Tk);
 
   // the query rows that may see a key of this tile
   const int k_last = min(k0 + kBT, Tk) - 1;
   const int r_begin = causal ? max(0, k0 - off) : 0;
   const int r_end = window > 0 ? min(S, k_last + window - off) : S;
-  const int c = tid % HD, kg = tid / HD;
-  float dk_acc[KPT], dv_acc[KPT];
+  const int rk = CK::row(tid), rv = CV::row(tid);
+  float dk_acc[CK::kCols][CK::kRows], dv_acc[CV::kCols][CV::kRows];
 #pragma unroll
-  for (int r = 0; r < KPT; ++r) dk_acc[r] = dv_acc[r] = 0.f;
+  for (int c = 0; c < CK::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < CK::kRows; ++r) dk_acc[c][r] = 0.f;
+#pragma unroll
+  for (int c = 0; c < CV::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < CV::kRows; ++r) dv_acc[c][r] = 0.f;
 
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
@@ -371,7 +460,7 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = (r_begin / kBT) * kBT; qt < r_end; qt += kBT) {
       __syncthreads();
       load_tile<T, HD>(q_s, qb, qs.s, qt, S);
-      load_tile<T, HD>(do_s, dob, dos.s, qt, S);
+      load_tile<T, HDV>(do_s, dob, dos.s, qt, S);
       if (tid < kBT) {
         const bool in = qt + tid < S;
         m_s[tid] = in ? stats[srow + qt + tid] : 0.f;
@@ -380,7 +469,7 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
       float s[2][2], dp[2][2];
-      dots2<HD>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
+      scores<HD, HDV>(q_s, k_s, do_s, v_s, ty, tx, s, dp);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = ty + 16 * i;
@@ -399,11 +488,29 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 #pragma unroll 4
       for (int i = 0; i < kBT; ++i) {
-        const float dov = do_s[i * KP + c], qv = q_s[i * KP + c];
+        if constexpr (HD == HDV) {
+          const int c = CK::col(tid, 0);
+          const float dov = do_s[i * KP + c], qv = q_s[i * KP + c];
 #pragma unroll
-        for (int r = 0; r < KPT; ++r) {
-          dv_acc[r] += p_s[i * kPS + kg * KPT + r] * dov;
-          dk_acc[r] += ds_s[i * kPS + kg * KPT + r] * qv;
+          for (int r = 0; r < CK::kRows; ++r) {
+            dv_acc[0][r] += p_s[i * kPS + rv + r] * dov;
+            dk_acc[0][r] += ds_s[i * kPS + rk + r] * qv;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < CV::kCols; ++c) {
+            const float dov = do_s[i * KPV + CV::col(tid, c)];
+#pragma unroll
+            for (int r = 0; r < CV::kRows; ++r)
+              dv_acc[c][r] += p_s[i * kPS + rv + r] * dov;
+          }
+#pragma unroll
+          for (int c = 0; c < CK::kCols; ++c) {
+            const float qv = q_s[i * KP + CK::col(tid, c)];
+#pragma unroll
+            for (int r = 0; r < CK::kRows; ++r)
+              dk_acc[c][r] += ds_s[i * kPS + rk + r] * qv;
+          }
         }
       }
     }
@@ -411,67 +518,73 @@ attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   T* dkb = dk + b * dks.b + hk * dks.h;
   T* dvb = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
-  for (int r = 0; r < KPT; ++r) {
-    const int key = k0 + kg * KPT + r;
-    if (key < Tk) {
-      put(dkb + key * dks.s + c, dk_acc[r] * scale);
-      put(dvb + key * dvs.s + c, dv_acc[r]);
+  for (int c = 0; c < CK::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < CK::kRows; ++r) {
+      const int key = k0 + rk + r;
+      if (key < Tk)
+        put(dkb + key * dks.s + CK::col(tid, c), dk_acc[c][r] * scale);
     }
-  }
+#pragma unroll
+  for (int c = 0; c < CV::kCols; ++c)
+#pragma unroll
+    for (int r = 0; r < CV::kRows; ++r) {
+      const int key = k0 + rv + r;
+      if (key < Tk) put(dvb + key * dvs.s + CV::col(tid, c), dv_acc[c][r]);
+    }
 }
 
-template <class T, int HD>
+template <class T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* stats, int B, int H, int KV,
            int S, int Tk, Strides qs, Strides ks, Strides vs, Strides dos,
            Strides dqs, Strides dks, Strides dvs, int causal, int window,
            int off,
            float scale, cudaStream_t st) {
-  constexpr size_t s1 = dq_smem<HD>(), s2 = dkv_smem<HD>();
+  constexpr size_t s1 = dq_smem<HD, HDV>(), s2 = dkv_smem<HD, HDV>();
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(attn_bwd_dq<T, HD>,
+  if ((err = cudaFuncSetAttribute(attn_bwd_dq<T, HD, HDV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)s1)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaFuncSetAttribute(attn_bwd_dkv<T, HD>,
+  if ((err = cudaFuncSetAttribute(attn_bwd_dkv<T, HD, HDV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)s2)) != cudaSuccess)
     return (int)err;
   const int group = H / KV;
   const T *qp = (const T*)q, *kp = (const T*)k, *vp = (const T*)v,
           *dop = (const T*)dout;
-  attn_bwd_dq<T, HD><<<dim3((S + kBT - 1) / kBT, B * H), kThreads, s1, st>>>(
+  attn_bwd_dq<T, HD, HDV><<<dim3((S + kBT - 1) / kBT, B * H), kThreads, s1,
+                            st>>>(
       qp, kp, vp, dop, (T*)dq, stats, H, group, S, Tk, qs, ks, vs, dos, dqs,
       causal, window, off, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attn_bwd_dkv<T, HD><<<dim3((Tk + kBT - 1) / kBT, B * KV), kThreads, s2,
-                        st>>>(qp, kp, vp, dop, stats, (T*)dk, (T*)dv, H, KV,
+  attn_bwd_dkv<T, HD, HDV><<<dim3((Tk + kBT - 1) / kBT, B * KV), kThreads,
+                             s2, st>>>(qp, kp, vp, dop, stats, (T*)dk, (T*)dv, H, KV,
                               group, S, Tk, qs, ks, vs, dos, dks, dvs, causal,
                               window, off, scale);
   return (int)cudaGetLastError();
 }
 
 template <class T>
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
+int dispatch_hd(int hd, int hdv, const void* q, const void* k, const void* v,
                 const void* dout, void* dq, void* dk, void* dv, float* stats,
                 int B, int H, int KV, int S, int Tk, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dqs, Strides dks,
                 Strides dvs, int causal, int window, int off, float scale,
                 cudaStream_t st) {
-#define ATTN_BWD_HD(HD)                                                      \
-  case HD:                                                                   \
-    return launch<T, HD>(q, k, v, dout, dq, dk, dv, stats, B, H, KV, S, Tk,  \
-                         qs, ks, vs, dos, dqs, dks, dvs, causal, window,     \
-                         off, scale, st);
-  switch (hd) {
-    ATTN_BWD_HD(32)
-    ATTN_BWD_HD(64)
-    ATTN_BWD_HD(128)
-    ATTN_BWD_HD(256)
-    default:
-      return -1;
-  }
+#define ATTN_BWD_HD(HD, HDV)                                                 \
+  if (hd == HD && hdv == HDV)                                                \
+    return launch<T, HD, HDV>(q, k, v, dout, dq, dk, dv, stats, B, H, KV, S, \
+                              Tk, qs, ks, vs, dos, dqs, dks, dvs, causal,    \
+                              window, off, scale, st);
+  ATTN_BWD_HD(32, 32)
+  ATTN_BWD_HD(64, 64)
+  ATTN_BWD_HD(128, 128)
+  ATTN_BWD_HD(256, 256)
+  ATTN_BWD_HD(192, 128)
 #undef ATTN_BWD_HD
+  return -1;
 }
 
 
@@ -483,15 +596,19 @@ namespace tc {
 constexpr int kB = 64;           // query rows or keys of a tile: wgmma's M
 constexpr int kThreadsTC = 256;  // two warpgroups
 
-template <int HD>
+// HD: the head size of q, k, dq and dk; HDV: that of v, dO and dv
+template <int HD, int HDV>
 struct BwdTiles {
   static constexpr int kBlocks = HD < 64 ? 1 : HD / 64;
-  static constexpr int kTile = kB * kBlocks * 128;  // one 64-row tile
-  static constexpr int kX = 32 * 128 * 4;           // 64 x 64 f32
+  static constexpr int kVBlocks = HDV < 64 ? 1 : HDV / 64;
+  static constexpr int kTile = kB * kBlocks * 128;    // one 64-row Q or K tile
+  static constexpr int kVTile = kB * kVBlocks * 128;  // one dO or V tile
+  static constexpr int kStage = kTile + kVTile;
+  static constexpr int kX = 32 * 128 * 4;             // 64 x 64 f32
   // six tiles (dq pass: Q, dO and two stages of K and V; dk/dv pass: K,
   // V and two stages of Q and dO), the exchange tile, 2 KB of scalars and
   // room to align the start to 1024 bytes
-  static constexpr int kSmem = 6 * kTile + kX + 2048 + 1024;
+  static constexpr int kSmem = 3 * kStage + kX + 2048 + 1024;
 };
 
 // named barriers over both warpgroups (0 is __syncthreads)
@@ -525,8 +642,8 @@ __device__ __forceinline__ void mma_abt(float (&x)[32], uint32_t a,
 // acc[c] += (hi + lo) B[:, column block c]: A [64 x 64] as two bf16
 // operands in registers, B the 64-row tile from column block b on, read
 // MN-major (through the transpose bit), 16 rows an instruction
-template <int NC>
-__device__ __forceinline__ void mma_split(float (&acc)[NC][32],
+template <int NC, int N>
+__device__ __forceinline__ void mma_split(float (&acc)[N][32],
                                           const uint32_t (&hi)[16],
                                           const uint32_t (&lo)[16],
                                           uint32_t b) {
@@ -559,7 +676,7 @@ __device__ __forceinline__ int col(int i, int lane) {
 
 // stats: the log-sum-exp of each row's s * scale * log2(e) at [0, n) and
 // D at [n, 2n), n = B * H * S, row (b * H + h) * S + i.
-template <int HD>
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -567,16 +684,18 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   int group, int S, int Tk, Strides qs, Strides ks,
                   Strides vs, Strides dos, Strides dqs, int causal,
                   int window, int off, float scale) {
-  using L = BwdTiles<HD>;
+  using L = BwdTiles<HD, HDV>;
   constexpr int NB = L::kBlocks;
-  constexpr int NH = NB > 1 ? NB / 2 : 1;  // dq column blocks a warpgroup
+  // dq column blocks of warpgroup 0; warpgroup 1 takes the rest (with an
+  // odd count above one, one fewer)
+  constexpr int NH = NB > 1 ? (NB + 1) / 2 : 1;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t q_s = (raw + 1023u) & ~1023u;
   const uint32_t do_s = q_s + L::kTile;
-  const uint32_t kv_s = do_s + L::kTile;  // stage j: K, then V
+  const uint32_t kv_s = do_s + L::kVTile;  // stage j: K, then V
   float* x_s =
-      reinterpret_cast<float*>(smem_raw + (q_s - raw) + 6 * L::kTile);
+      reinterpret_cast<float*>(smem_raw + (q_s - raw) + 3 * L::kStage);
   float* a_s = x_s + 32 * 128;  // [2][128]: walk 1's rescale of a row
   float* l_s = a_s + 2 * 128;   // [2][128]: the row's sum
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5,
@@ -596,11 +715,11 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n = k_end > k_begin ? (k_end + kB - 1) / kB - t0 : 0;
 
   load_tile<HD, kB, kThreadsTC>(q_s, q + b * qs.b + h * qs.h, qs.s, q0, S);
-  load_tile<HD, kB, kThreadsTC>(do_s, dout + b * dos.b + h * dos.h, dos.s,
-                                q0, S);
+  load_tile<HDV, kB, kThreadsTC>(do_s, dout + b * dos.b + h * dos.h, dos.s,
+                                 q0, S);
   if (n > 0) {
     load_tile<HD, kB, kThreadsTC>(kv_s, kb, ks.s, t0 * kB, Tk);
-    load_tile<HD, kB, kThreadsTC>(kv_s + L::kTile, vb, vs.s, t0 * kB, Tk);
+    load_tile<HDV, kB, kThreadsTC>(kv_s + L::kTile, vb, vs.s, t0 * kB, Tk);
   }
   cp_commit();
 
@@ -623,16 +742,16 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int it = 0; it < 2 * n; ++it) {
     const bool walk2 = it >= n;
     const int kt = (t0 + (walk2 ? it - n : it)) * kB;
-    const uint32_t k_st = kv_s + (it & 1) * 2 * L::kTile;
+    const uint32_t k_st = kv_s + (it & 1) * L::kStage;
     const uint32_t v_st = k_st + L::kTile;
     cp_wait_all();  // this thread's copies of tile it (and of Q, dO)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // everyone's copies; step it - 1 fully consumed
     if (it + 1 < 2 * n) {
       const int nt = (t0 + (it + 1 >= n ? it + 1 - n : it + 1)) * kB;
-      const uint32_t nxt = kv_s + ((it + 1) & 1) * 2 * L::kTile;
+      const uint32_t nxt = kv_s + ((it + 1) & 1) * L::kStage;
       load_tile<HD, kB, kThreadsTC>(nxt, kb, ks.s, nt, Tk);
-      load_tile<HD, kB, kThreadsTC>(nxt + L::kTile, vb, vs.s, nt, Tk);
+      load_tile<HDV, kB, kThreadsTC>(nxt + L::kTile, vb, vs.s, nt, Tk);
     }
     cp_commit();
     if (it == n && wg == 1) {
@@ -649,7 +768,12 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // s = Q K^T (warpgroup 0) or dP = dO V^T (warpgroup 1)
     float x[32];
-    mma_abt<HD>(x, wg == 0 ? q_s : do_s, wg == 0 ? k_st : v_st);
+    if constexpr (HD == HDV)
+      mma_abt<HD>(x, wg == 0 ? q_s : do_s, wg == 0 ? k_st : v_st);
+    else if (wg == 0)
+      mma_abt<HD>(x, q_s, k_st);
+    else
+      mma_abt<HDV>(x, do_s, v_st);
     // element masks only on a tile that straddles an edge
     const bool edge = kt + kB > Tk || (causal && kt + kB - 1 > qp_first) ||
                       (window > 0 && kt <= qp_last - window);
@@ -727,7 +851,14 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 32; ++i) x[i] = x_s[i * 128 + t];
       uint32_t hi[16], lo[16];
       split(x, hi, lo);
-      mma_split<NH>(acc, hi, lo, k_st + cb0 * kB * 128);
+      if constexpr (NB > 1 && NB % 2 == 1) {
+        if (wg == 0)
+          mma_split<NH>(acc, hi, lo, k_st + cb0 * kB * 128);
+        else
+          mma_split<NB - NH>(acc, hi, lo, k_st + cb0 * kB * 128);
+      } else {
+        mma_split<NH>(acc, hi, lo, k_st + cb0 * kB * 128);
+      }
     }
   }
   cp_wait_all();
@@ -749,8 +880,8 @@ attn_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // part: f32 partial sums [2][parts][B * KV * T * hd] (dk, then dv) when
-// parts > 1.
-template <int HD>
+// parts > 1 (HD = HDV only).
+template <int HD, int HDV>
 __global__ void __launch_bounds__(kThreadsTC, 1)
 attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v,
@@ -760,15 +891,17 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    int KV, int group, int parts, int S, int Tk, Strides qs,
                    Strides ks, Strides vs, Strides dos, Strides dks,
                    Strides dvs, int causal, int window, int off, float scale) {
-  using L = BwdTiles<HD>;
-  constexpr int NB = L::kBlocks;
+  using L = BwdTiles<HD, HDV>;
+  constexpr int NB = L::kBlocks;    // dk's column blocks (warpgroup 1)
+  constexpr int NBV = L::kVBlocks;  // dv's (warpgroup 0)
+  constexpr int NA = NB > NBV ? NB : NBV;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t k_s = (raw + 1023u) & ~1023u;
   const uint32_t v_s = k_s + L::kTile;
-  const uint32_t qd_s = v_s + L::kTile;  // stage j: Q, then dO
+  const uint32_t qd_s = v_s + L::kVTile;  // stage j: Q, then dO
   float* x_s =
-      reinterpret_cast<float*>(smem_raw + (k_s - raw) + 6 * L::kTile);
+      reinterpret_cast<float*>(smem_raw + (k_s - raw) + 3 * L::kStage);
   float* st_s = x_s + 32 * 128;  // stage j: lse [64], then D [64]
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5,
             lane = tid & 31;
@@ -783,7 +916,7 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long nst = nbk / KV * H * S;   // B * H * S
 
   load_tile<HD, kB, kThreadsTC>(k_s, k + b * ks.b + hk * ks.h, ks.s, k0, Tk);
-  load_tile<HD, kB, kThreadsTC>(v_s, v + b * vs.b + hk * vs.h, vs.s, k0, Tk);
+  load_tile<HDV, kB, kThreadsTC>(v_s, v + b * vs.b + hk * vs.h, vs.s, k0, Tk);
 
   // the query rows that may see a key of this tile
   const int k_last = min(k0 + kB, Tk) - 1;
@@ -797,11 +930,11 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // seen after the __syncthreads that starts the step)
   auto fetch = [&](int i, int j) {
     const int h = h0 + i / nq, qt = (qt0 + i % nq) * kB;
-    const uint32_t dst = qd_s + j * 2 * L::kTile;
+    const uint32_t dst = qd_s + j * L::kStage;
     load_tile<HD, kB, kThreadsTC>(dst, q + b * qs.b + h * qs.h, qs.s, qt, S);
-    load_tile<HD, kB, kThreadsTC>(dst + L::kTile,
-                                  dout + b * dos.b + h * dos.h, dos.s, qt,
-                                  S);
+    load_tile<HDV, kB, kThreadsTC>(dst + L::kTile,
+                                   dout + b * dos.b + h * dos.h, dos.s, qt,
+                                   S);
     if (tid < 2 * kB) {
       const int r = qt + (tid & (kB - 1));
       const long long at = ((long long)b * H + h) * S + r;
@@ -811,9 +944,9 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (n > 0) fetch(0, 0);
   cp_commit();
 
-  float acc[NB][32];  // warpgroup 0: dV, warpgroup 1: dK (without scale)
+  float acc[NA][32];  // warpgroup 0: dV, warpgroup 1: dK (without scale)
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NA; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   const float scale2 = scale * kLog2e;
@@ -822,7 +955,7 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int it = 0; it < n; ++it) {
     const int qt = (qt0 + it % nq) * kB;
-    const uint32_t q_st = qd_s + (it & 1) * 2 * L::kTile;
+    const uint32_t q_st = qd_s + (it & 1) * L::kStage;
     const uint32_t do_st = q_st + L::kTile;
     const float* lse_t = st_s + (it & 1) * 2 * kB;
     const float* d_t = lse_t + kB;
@@ -834,7 +967,12 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // s^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
     float x[32];
-    mma_abt<HD>(x, wg == 0 ? k_s : v_s, wg == 0 ? q_st : do_st);
+    if constexpr (HD == HDV)
+      mma_abt<HD>(x, wg == 0 ? k_s : v_s, wg == 0 ? q_st : do_st);
+    else if (wg == 0)
+      mma_abt<HD>(x, k_s, q_st);
+    else
+      mma_abt<HDV>(x, v_s, do_st);
     const bool edge = qt + kB > S || k0 + kB > Tk ||
                       (causal && k0 + kB - 1 > qt + off) ||
                       (window > 0 && k0 <= qt + kB - 1 + off - window);
@@ -862,17 +1000,22 @@ attn_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1), as hi + lo
     uint32_t hi[16], lo[16];
     split(x, hi, lo);
-    mma_split<NB>(acc, hi, lo, wg == 0 ? do_st : q_st);
+    if constexpr (HD == HDV)
+      mma_split<NB>(acc, hi, lo, wg == 0 ? do_st : q_st);
+    else if (wg == 0)
+      mma_split<NBV>(acc, hi, lo, do_st);
+    else
+      mma_split<NB>(acc, hi, lo, q_st);
   }
   cp_wait_all();
 
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NA; ++c)
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int r = key + 8 * ((i >> 1) & 1);
       const int cl = c * 64 + col(i, lane);
-      if (r >= Tk || cl >= HD) continue;
+      if (r >= Tk || cl >= (wg == 0 ? HDV : HD)) continue;
       if (parts == 1) {
         const float f = wg == 0 ? 1.f : scale;
         bf16* o = wg == 0 ? dv + b * dvs.b + hk * dvs.h + r * dvs.s
@@ -928,32 +1071,33 @@ attn_bwd_gqa_sum(const float* __restrict__ part, int parts, long long n,
                             r * os.s + d) = w;
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            void* dq, void* dk, void* dv, float* stats, float* part, int B,
            int H, int KV, int S, int Tk, int parts, Strides qs, Strides ks,
            Strides vs, Strides dos, Strides dqs, Strides dks, Strides dvs,
            int causal, int window, int off, float scale, cudaStream_t st) {
-  constexpr int smem = BwdTiles<HD>::kSmem;
+  if (HD != HDV && parts != 1) return -1;
+  constexpr int smem = BwdTiles<HD, HDV>::kSmem;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(attn_bwd_dq_wgmma<HD>,
+  if ((err = cudaFuncSetAttribute(attn_bwd_dq_wgmma<HD, HDV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem)) != cudaSuccess)
     return (int)err;
-  if ((err = cudaFuncSetAttribute(attn_bwd_dkv_wgmma<HD>,
+  if ((err = cudaFuncSetAttribute(attn_bwd_dkv_wgmma<HD, HDV>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   smem)) != cudaSuccess)
     return (int)err;
   const bf16 *qp = (const bf16*)q, *kp = (const bf16*)k,
              *vp = (const bf16*)v, *dop = (const bf16*)dout;
-  attn_bwd_dq_wgmma<HD><<<dim3(B * H, (S + kB - 1) / kB), kThreadsTC, smem,
-                          st>>>(qp, kp, vp, dop, (bf16*)dq, stats, H, H / KV,
+  attn_bwd_dq_wgmma<HD, HDV><<<dim3(B * H, (S + kB - 1) / kB), kThreadsTC,
+                               smem, st>>>(qp, kp, vp, dop, (bf16*)dq, stats, H, H / KV,
                                 S, Tk, qs, ks, vs, dos, dqs, causal, window,
                                 off,
                                 scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attn_bwd_dkv_wgmma<HD><<<dim3(B * KV * parts, (Tk + kB - 1) / kB),
-                           kThreadsTC, smem, st>>>(
+  attn_bwd_dkv_wgmma<HD, HDV><<<dim3(B * KV * parts, (Tk + kB - 1) / kB),
+                                kThreadsTC, smem, st>>>(
       qp, kp, vp, dop, stats, (bf16*)dk, (bf16*)dv, part, H, KV, H / KV,
       parts, S, Tk, qs, ks, vs, dos, dks, dvs, causal, window, off, scale);
   if ((err = cudaGetLastError()) != cudaSuccess || parts == 1)
@@ -965,27 +1109,25 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-int dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                const void* dout, void* dq, void* dk, void* dv, float* stats,
-                float* part, int B, int H, int KV, int S, int Tk, int parts,
-                Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-                Strides dks, Strides dvs, int causal, int window, int off,
-                float scale,
+int dispatch_hd(int hd, int hdv, const void* q, const void* k,
+                const void* v, const void* dout, void* dq, void* dk, void* dv,
+                float* stats, float* part, int B, int H, int KV, int S,
+                int Tk, int parts, Strides qs, Strides ks, Strides vs,
+                Strides dos, Strides dqs, Strides dks, Strides dvs,
+                int causal, int window, int off, float scale,
                 cudaStream_t st) {
-#define ATTN_BWD_TC_HD(HD)                                                   \
-  case HD:                                                                   \
-    return launch<HD>(q, k, v, dout, dq, dk, dv, stats, part, B, H, KV, S,  \
-                      Tk, parts, qs, ks, vs, dos, dqs, dks, dvs, causal,     \
-                      window, off, scale, st);
-  switch (hd) {
-    ATTN_BWD_TC_HD(32)
-    ATTN_BWD_TC_HD(64)
-    ATTN_BWD_TC_HD(128)
-    ATTN_BWD_TC_HD(256)
-    default:
-      return -1;
-  }
+#define ATTN_BWD_TC_HD(HD, HDV)                                              \
+  if (hd == HD && hdv == HDV)                                                \
+    return launch<HD, HDV>(q, k, v, dout, dq, dk, dv, stats, part, B, H, KV, \
+                           S, Tk, parts, qs, ks, vs, dos, dqs, dks, dvs,     \
+                           causal, window, off, scale, st);
+  ATTN_BWD_TC_HD(32, 32)
+  ATTN_BWD_TC_HD(64, 64)
+  ATTN_BWD_TC_HD(128, 128)
+  ATTN_BWD_TC_HD(256, 256)
+  ATTN_BWD_TC_HD(192, 128)
 #undef ATTN_BWD_TC_HD
+  return -1;
 }
 
 }  // namespace tc
@@ -994,7 +1136,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 
 // dtype 0 is f32 (CUDA cores), 1 is bf16 (tensor cores; q, k, v and dout
 // 16-byte aligned with row, head and batch strides in multiples of 8);
-// head sizes 32, 64, 128 and 256.  Strides are (batch, head, row) of q,
+// head sizes (hd of q, k, hdv of v, dout) 32, 64, 128 and 256 with hdv =
+// hd, and hd 192 with hdv 128 (parts 1).  Strides are (batch, head, row) of q,
 // k, v, dout, dq, dk, dv in elements, the last axis contiguous.  stats is
 // f32 scratch of 3 B H S floats.  parts (bf16 only; 1 for f32) divides
 // H / KV; with parts > 1, partial is f32 scratch of 2 parts B KV T hd
@@ -1002,7 +1145,8 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v,
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* dout, void* dq,
     void* dk, void* dv, void* stats, void* partial, int B, int H, int KV,
-    int S, int T, int hd, int dtype, int parts, const long long* strides,
+    int S, int T, int hd, int hdv, int dtype, int parts,
+    const long long* strides,
     int causal, int window, int off, float scale, int device,
     void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
@@ -1021,10 +1165,11 @@ extern "C" int flash_attention_bwd_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   const int rc =
       dtype == 0
-          ? dispatch_hd<float>(hd, q, k, v, dout, dq, dk, dv, (float*)stats,
-                               B, H, KV, S, T, s[0], s[1], s[2], s[3], s[4],
-                               s[5], s[6], causal, window, off, scale, st)
-          : tc::dispatch_hd(hd, q, k, v, dout, dq, dk, dv, (float*)stats,
+          ? dispatch_hd<float>(hd, hdv, q, k, v, dout, dq, dk, dv,
+                               (float*)stats, B, H, KV, S, T, s[0], s[1], s[2],
+                               s[3], s[4], s[5], s[6], causal, window, off,
+                               scale, st)
+          : tc::dispatch_hd(hd, hdv, q, k, v, dout, dq, dk, dv, (float*)stats,
                             (float*)partial, B, H, KV, S, T, parts, s[0],
                             s[1], s[2], s[3], s[4], s[5], s[6], causal,
                             window, off, scale, st);

@@ -73,27 +73,28 @@ class AttentionFn(torch.autograd.Function):
     """The attention kernel with its backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, q_offset):
+    def forward(ctx, q, k, v, causal, window, q_offset, scale):
         from repro_torch.kernels.flash_attention import flash_attention_cuda
         ctx.save_for_backward(q, k, v)
-        ctx.mask = (causal, window, q_offset)
+        ctx.mask = (causal, window, q_offset, scale)
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    q_offset=q_offset)
+                                    q_offset=q_offset, scale=scale)
 
     @staticmethod
     def backward(ctx, do):
         from repro_torch.kernels.flash_attention import (
             flash_attention_bwd_cuda, tc_aligned)
         q, k, v = ctx.saved_tensors
-        causal, window, q_offset = ctx.mask
+        causal, window, q_offset, scale = ctx.mask
         # the kernel reads a contiguous last axis, and on the bf16 route
         # rows in 16-byte pieces: a dense copy of any other dO
         if do.stride(3) != 1 or (do.dtype == torch.bfloat16
                                  and not tc_aligned(do)):
             do = do.clone(memory_format=torch.contiguous_format)
         return (*flash_attention_bwd_cuda(q, k, v, do, causal=causal,
-                                          window=window, q_offset=q_offset),
-                None, None, None)
+                                          window=window, q_offset=q_offset,
+                                          scale=scale),
+                None, None, None, None)
 
 
 class RGLRUFn(torch.autograd.Function):
@@ -177,17 +178,19 @@ def wemd_add(p_sum, p_dev, global_dist, class_weights, sizes):
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              q_offset: int | None = None):
-    """q [B,H,S,hd], k/v [B,KV,T,hd] (KV divides H; strided views
-    allowed) -> [B,H,S,hd] in q's dtype; differentiable on both routes.
-    ``q_offset``: the key position of query 0, T - S by default.  DTensor
-    inputs run on their local shards (module docstring)."""
+              q_offset: int | None = None, scale: float | None = None):
+    """q [B,H,S,hd], k [B,KV,T,hd], v [B,KV,T,hdv] (KV divides H; strided
+    views allowed) -> [B,H,S,hdv] in q's dtype; differentiable on both
+    routes.  ``q_offset``: the key position of query 0, T - S by default;
+    ``scale``: 1/sqrt(hd) by default.  hdv is hd, or on the card one of
+    ``flash_attention.HEAD_PAIRS`` (latent attention's q/k 192, v 128).
+    DTensor inputs run on their local shards (module docstring)."""
     if is_dtensor(q):
-        return _sharded_attention(q, k, v, causal, window, q_offset)
+        return _sharded_attention(q, k, v, causal, window, q_offset, scale)
     if _route(q, meta=True) == "cuda":
-        return AttentionFn.apply(q, k, v, causal, window, q_offset)
+        return AttentionFn.apply(q, k, v, causal, window, q_offset, scale)
     return ref.attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+                             q_offset=q_offset, scale=scale)
 
 
 def wkv(r, k, v, w, u, state):
@@ -296,7 +299,7 @@ def _shard_offset(x, dim: int) -> int:
     return int(offset[dim])
 
 
-def _sharded_attention(q, k, v, causal, window, q_offset):
+def _sharded_attention(q, k, v, causal, window, q_offset, scale=None):
     from torch.distributed.tensor.experimental import local_map
     seq = "a sharded key sequence"
     qpl = _first_placements(q, "attention q", (0, 1, 2), None, "")
@@ -309,7 +312,7 @@ def _sharded_attention(q, k, v, causal, window, q_offset):
 
     def run(ql, kl, vl):
         return attention(ql, kl, vl, causal=causal, window=window,
-                         q_offset=off)
+                         q_offset=off, scale=scale)
     # the keys are whole where the queries are split (context
     # parallelism): each rank's dk, dv are its queries' part of the sum
     kg = tuple(partial_where_split(qpl, kpl))

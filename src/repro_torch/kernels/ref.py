@@ -16,10 +16,11 @@ import torch.nn.functional as F
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                   scale: float | None = None, q_offset: int | None = None):
-    """q [B,H,S,hd], k/v [B,KV,T,hd] with KV dividing H (query head h
-    reads key head h // (H/KV)) -> [B,H,S,hd] in q's dtype.  Dense masked
-    softmax in f32; query i sits at key position i + q_offset, T - S by
-    default (queries right-aligned when T > S)."""
+    """q [B,H,S,hd], k [B,KV,T,hd], v [B,KV,T,hdv] with KV dividing H
+    (query head h reads key head h // (H/KV)) -> [B,H,S,hdv] in q's
+    dtype.  Dense masked softmax in f32 of the scores times ``scale``
+    (1/sqrt(hd) by default); query i sits at key position i + q_offset, T
+    - S by default (queries right-aligned when T > S)."""
     B, H, S, hd = q.shape
     T = k.shape[2]
     G = H // k.shape[1]
@@ -44,7 +45,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0,
-                      q_offset: int | None = None):
+                      q_offset: int | None = None,
+                      scale: float | None = None):
     """Gradients of ``attention_ref(q, k, v)`` for the output's gradient
     ``do`` -> (dq, dk, dv) in the inputs' dtype: autograd of the dense
     version on the inputs cast to f32, each gradient rounded to the
@@ -55,7 +57,7 @@ def attention_bwd_ref(q, k, v, do, *, causal: bool = True, window: int = 0,
         leaves = [x.detach().to(torch.float32).requires_grad_(True)
                   for x in (q, k, v)]
         out = attention_ref(*leaves, causal=causal, window=window,
-                            q_offset=q_offset)
+                            q_offset=q_offset, scale=scale)
         grads = torch.autograd.grad(out, leaves, do.to(torch.float32))
     return tuple(g.to(q.dtype) for g in grads)
 

@@ -21,7 +21,7 @@ import argparse
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import get_config, port_archs
 from repro_torch.core import Problem, fscd
 from repro_torch.data import synthetic_token_dataset
 from repro_torch.device import resolve_device
@@ -91,7 +91,7 @@ def run(cfg, *, rounds: int, silos: int = 8, per_silo_batch: int = 2,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen2-7b", choices=list_archs())
+    ap.add_argument("--arch", default="qwen2-7b", choices=port_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="train the config's reduced() variant")
     ap.add_argument("--rounds", type=int, default=20)

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLA, ModelConfig
 from repro_torch.launch.shapes import CACHE_PAD, InputShape
 from repro_torch.models import transformer as T
 from repro_torch.sharding import ShardingCtx, axis_sizes, spec_to_placements
@@ -48,6 +48,11 @@ def tp_capable(cfg: ModelConfig, model_axis_size: int = 16) -> bool:
 
 def make_ctx(cfg: ModelConfig, mesh, shape: Optional[InputShape] = None,
              opt: bool = False) -> ShardingCtx:
+    if MLA in cfg.block_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: no sharding rules for latent attention, the "
+            f"leading dense layer or held experts (its MoE runs one "
+            f"device's share without a mesh)")
     sizes = axis_sizes(mesh)
     multi_pod = "pod" in sizes
     batch_axes = ("pod", "data") if multi_pod else ("data",)

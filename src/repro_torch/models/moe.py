@@ -33,6 +33,25 @@ torch 2.11 sorts the indices on CUDA, and the plain gathers' backward
 repeated bit for bit on an H100, so these guard against a torch whose
 scatter adds in another order, not against a fault seen today.  Their
 forwards are the plain gathers, bitwise.
+
+The sigmoid router of DeepSeek-V3 (moonlight-16b-a3b, ``moe_ffn_held``)
+is a second path that leaves the one above as it is.  The router runs in
+f32 (x cast to f32 against the f32 router, a full-f32 product), scores s
+= sigmoid(logits); the choice is the top k of s + b (b the correction
+bias ``router_bias``, a buffer the train step leaves as it is; a stable
+descending sort, ties at the lower index), the weights the chosen s
+normalised to sum to one and times ``routed_scaling``.  The layer holds
+experts [expert_lo, expert_lo + experts_held) of the E it routes over
+(one device's share of an expert-parallel layer) and computes their part
+of the result only, for the tokens routed to them, dropping nothing.  The
+dispatch is a stable sort of the T k assignments by held expert (the
+others after them, in a scratch group), so each expert's tokens are a
+contiguous run in token order; the expert products are
+``torch._grouped_mm`` over the runs' offsets (no padding, no host sync:
+the buffer has T k rows, every assignment's possible place, and the rows
+past the held runs are never read).  The combine sums a token's held
+slots in slot order in f32 (``_CombineHeld``), and its backward, like
+``_Dispatch``'s, gathers in a fixed order.
 """
 from __future__ import annotations
 
@@ -43,6 +62,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
+from repro_torch.obs import LayerTrace, in_backward
 from repro_torch.sharding import (as_dtensor, matmul, partial_where_split,
                                   resolve_spec, spec_to_placements)
 
@@ -52,18 +72,33 @@ def moe_params_init(gen, cfg: ModelConfig, dtype, out=None):
     leading [E] axis, and the ``shared`` / ``dense_residual`` SwiGLUs
     where the config has them; with ``out`` (a tree of the same leaves)
     each is drawn into its leaf."""
+    return _moe_params_init(gen, cfg, dtype, cfg.num_experts, out)
+
+
+def held_params_init(gen, cfg, dtype, out=None):
+    """``moe_params_init``'s leaves for the sigmoid router over the held
+    experts (``moe_ffn_held``): the experts' weights on a leading
+    [num_held] axis, and the correction bias ``router_bias`` [E], f32
+    zeros."""
+    return _moe_params_init(gen, cfg, dtype, cfg.num_held, out, bias=True)
+
+
+def _moe_params_init(gen, cfg, dtype, held, out, bias=False):
     d, dff, E = cfg.d_model, cfg.d_ff, cfg.num_experts
     o = out or {}
     p = {
         "router": dense_init(gen, (d, E), scale=0.02, dtype=torch.float32,
                              out=o.get("router")),
-        "w_gate": dense_init(gen, (E, d, dff), scale=1 / math.sqrt(d),
+        "w_gate": dense_init(gen, (held, d, dff), scale=1 / math.sqrt(d),
                              dtype=dtype, out=o.get("w_gate")),
-        "w_up": dense_init(gen, (E, d, dff), scale=1 / math.sqrt(d),
+        "w_up": dense_init(gen, (held, d, dff), scale=1 / math.sqrt(d),
                            dtype=dtype, out=o.get("w_up")),
-        "w_down": dense_init(gen, (E, dff, d), scale=1 / math.sqrt(dff),
+        "w_down": dense_init(gen, (held, dff, d), scale=1 / math.sqrt(dff),
                              dtype=dtype, out=o.get("w_down")),
     }
+    if bias:
+        p["router_bias"] = torch.zeros((E,), dtype=torch.float32,
+                                       device=gen.device)
     if cfg.num_shared_experts:
         p["shared"] = swiglu_init(gen, d, cfg.num_shared_experts * dff, dtype,
                                   out=o.get("shared"))
@@ -317,3 +352,99 @@ def _moe_sharded(params, cfg: ModelConfig, x, ctx):
         {"router": as_dtensor(params["router"], mesh)},
         xs.reshape(B * S, d)).to(torch.float32), dim=-1)
     return y, probs.mean(dim=0).redistribute(mesh, rep), ce
+
+
+# ---------------------------------------------------------------------------
+# the sigmoid router over held experts (DeepSeek-V3; module docstring)
+
+
+def sigmoid_routing(logits, bias, k: int, scaling: float):
+    """logits [T,E] f32, bias [E] -> (weights [T,k] f32, experts [T,k]
+    int64): the top k of sigmoid(logits) + bias (ties at the lower
+    index), weighted by their scores normalised and times ``scaling``."""
+    s = torch.sigmoid(logits)
+    experts = torch.sort(s.detach() + bias, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+    w = torch.gather(s, 1, experts)
+    return w / (w.sum(-1, keepdim=True) + 1e-20) * scaling, experts
+
+
+def grouped_mm(x, w, offs):
+    """x [N, a] @ w[g] for the rows of each run g (runs end at ``offs``
+    [G], int32; rows past the last run are left unwritten) -> [N, b]."""
+    return torch._grouped_mm(x, w, offs=offs)
+
+
+class _CombineHeld(torch.autograd.Function):
+    """y_buf [N, d] (the sorted assignments' expert outputs; rows past
+    the held runs unwritten), w [T, k] f32, pos [T, k] (each assignment's
+    row), held [T, k], src [N] (each row's token; T for a row of no held
+    assignment), w_sorted [N] (each row's weight, 0 past the held runs)
+    -> y [T, d] f32 = sum over the held j, in slot order, of y_buf[pos[:,
+    j]] w[:, j].  Backward: d y_buf[p] = w_sorted[p] dy[src[p]]; dw[t, j]
+    = <dy[t], y_buf[pos[t, j]]> where held, else 0."""
+
+    @staticmethod
+    def forward(ctx, y_buf, w, pos, held, src, w_sorted):
+        ctx.save_for_backward(y_buf, pos, held, src, w_sorted)
+        y = torch.zeros((pos.shape[0], y_buf.shape[1]), dtype=torch.float32,
+                        device=y_buf.device)
+        for j in range(pos.shape[1]):
+            y = y + torch.where(held[:, j, None],
+                                y_buf[pos[:, j]].float() * w[:, j, None],
+                                0.0)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        y_buf, pos, held, src, w_sorted = ctx.saved_tensors
+        dw = torch.stack([torch.where(held[:, j], (dy * y_buf[pos[:, j]]
+                                                   .float()).sum(-1), 0.0)
+                          for j in range(pos.shape[1])], dim=1)
+        dy_pad = torch.cat([dy, dy.new_zeros((1, dy.shape[1]))], dim=0)
+        d_buf = (dy_pad[src] * w_sorted[:, None]).to(y_buf.dtype)
+        return d_buf, dw, None, None, None, None
+
+
+def moe_ffn_held(params, cfg, x, trace=None):
+    """x [B,S,d] -> [B,S,d]: the held experts' part of the sigmoid-routed
+    MoE (module docstring) plus the shared experts.  ``trace`` (a
+    ``obs.LayerTrace``) gets the spans ``lm.moe.route`` and
+    ``lm.moe.experts`` and, in the forward, the layer's counters and
+    (where asked) its expert choices."""
+    trace = trace or LayerTrace()
+    B, S, d = x.shape
+    T, k = B * S, cfg.experts_per_token
+    nh, lo = cfg.num_held, cfg.expert_lo
+    N = T * k
+    xf = x.reshape(T, d)
+    with trace.span("lm.moe.route"):
+        logits = matmul(xf.to(torch.float32), params["router"])
+        w, experts = sigmoid_routing(logits, params["router_bias"], k,
+                                     cfg.routed_scaling)
+        local = experts.reshape(-1) - lo
+        held = (local >= 0) & (local < nh)
+        key = torch.where(held, local, nh)
+        order = torch.argsort(key, stable=True)
+        counts = _counts(key, nh + 1, torch.long)
+        offs = torch.cumsum(counts[:nh], 0).to(torch.int32)
+        rank = torch.empty_like(order)
+        rank[order] = torch.arange(N, device=x.device)
+        slot = torch.where(held, rank, N)       # a row, or the scratch N
+        token = torch.arange(N, device=x.device) // k
+        src = torch.where(held[order], token[order], T)
+        w_sorted = torch.where(held, w.detach().reshape(-1), 0.0)[order]
+        x_buf = _Dispatch.apply(xf, src, slot.reshape(T, k))
+    if not in_backward():
+        trace.moe.append((counts[:nh].sum(), counts[:nh].max()))
+        if trace.routing is not None:
+            trace.routing.append(experts.to(torch.int16))
+    with trace.span("lm.moe.experts"):
+        h = F.silu(grouped_mm(x_buf, params["w_gate"], offs)) \
+            * grouped_mm(x_buf, params["w_up"], offs)
+        y_buf = grouped_mm(h, params["w_down"], offs)
+    held2 = held.reshape(T, k)
+    y = _CombineHeld.apply(y_buf, w, torch.where(held, rank, 0).reshape(
+        T, k), held2, src, w_sorted)
+    y = y + swiglu(params["shared"], x).reshape(T, d).float()
+    return y.to(x.dtype).reshape(B, S, d)

@@ -1,6 +1,7 @@
 """Decoder of the LM model zoo: every family of the JAX package (dense
 GQA, MoE, RG-LRU hybrid, RWKV6, the VLM's cross-attention decoder and the
-audio-token decoder).
+audio-token decoder), and the port's own latent-attention MoE (layer
+kinds ``MLA`` and ``MLA_DENSE``, moonlight-16b-a3b: ``models/mla.py``).
 
 As in the JAX package, the parameters of the ``num_full_periods`` pattern
 periods are stacked on a leading [nper] axis (``params["blocks"]``) and
@@ -41,8 +42,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN, LOCAL_ATTN,
-                                      RECURRENT, RWKV, ModelConfig)
+                                      MLA, MLA_DENSE, RECURRENT, RWKV,
+                                      ModelConfig)
 from repro_torch.models import layers as L
+from repro_torch.models import mla as A
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import rwkv6 as W
@@ -57,6 +60,13 @@ def _dtype(cfg: ModelConfig):
 
 def _pdtype(cfg: ModelConfig):
     return getattr(torch, cfg.param_dtype)
+
+
+def _refuse_serving(cfg: ModelConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: serving latent attention needs a latent KV cache "
+        f"(the compressed c and the shared rope key a position), which "
+        f"the port does not have")
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +119,9 @@ def init_layer(gen, cfg: ModelConfig, kind: str, out=None):
     d = cfg.d_model
     dev = gen.device
     o = out or {}
+    if kind in (MLA, MLA_DENSE):
+        return _into(out, A.mla_layer_init(gen, cfg, kind == MLA_DENSE, dt,
+                                           out=o))
     if kind == RWKV:
         p = {
             "ln1": W.layer_norm_init(d, dt, dev),
@@ -173,6 +186,8 @@ def init(gen: torch.Generator, cfg: ModelConfig):
     if cfg.family == "vlm" and cfg.encoder_dim != cfg.d_model:
         params["enc_proj"] = L.dense_init(
             gen, (cfg.encoder_dim, cfg.d_model), dtype=dt)
+    if cfg.first_kind:
+        params["first"] = init_layer(gen, cfg, cfg.first_kind)
     n = cfg.num_full_periods
     if n:
         with FakeTensorMode():
@@ -212,6 +227,8 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, cache_len: int,
                                       device=device),
                 "wkv": torch.zeros((batch, H, rhd, rhd), dtype=torch.float32,
                                    device=device)}
+    if kind in (MLA, MLA_DENSE):
+        _refuse_serving(cfg)
     if kind == CROSS_ATTN:
         shape = (batch, cfg.num_encoder_tokens, KV, hd)
         return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -251,13 +268,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
 
 def apply_layer(p, cfg: ModelConfig, kind: str, x, *, enc=None, q_pos=None,
                 state=None, decode=False, collect_cache=False,
-                cache_len: int = 0, ctx=None):
+                cache_len: int = 0, ctx=None, trace=None):
     """Returns (x, aux_loss, new_state); ``enc`` [B,T,d] are the encoder
     states a cross layer attends over in prefill.  Under ``ctx`` the
-    residual stream enters sequence-sharded over the model axis."""
+    residual stream enters sequence-sharded over the model axis.  A
+    latent-attention layer (``mla.mla_layer``) reports to ``trace`` (an
+    ``obs.LayerTrace``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_state = state
     B = x.shape[0]
+    if kind in (MLA, MLA_DENSE):
+        if decode or collect_cache:
+            _refuse_serving(cfg)
+        return A.mla_layer(p, cfg, x, q_pos, kind == MLA_DENSE,
+                           trace), aux, state
     x = constrain(x, ctx, "batch", "sp", None)
 
     if kind == RWKV:
@@ -359,8 +383,9 @@ def _prefill_cache(cfg: ModelConfig, kind: str, kv, q_pos, cache_len: int):
 
 def _embed(params, cfg: ModelConfig, batch, ctx=None):
     """Token embeddings (the audio family: frame_embeddings @ embed_proj)
-    times sqrt(d_model), plus sinusoidal positions where the config has
-    them, at batch['positions'] (default 0..S-1)."""
+    times sqrt(d_model) where ``cfg.embed_scale``, plus sinusoidal
+    positions where the config has them, at batch['positions'] (default
+    0..S-1)."""
     # F.embedding: its backward on CUDA sums a row's gradients in a fixed
     # order (indexing's scatter-add uses atomics), so a train step repeats
     # bit for bit
@@ -371,8 +396,10 @@ def _embed(params, cfg: ModelConfig, batch, ctx=None):
         x = _embed_sharded(batch["tokens"], params["embed"], ctx).to(dt)
     else:
         x = F.embedding(batch["tokens"], params["embed"]).to(dt)
-    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(
-        device=x.device, dtype=dt)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model),
+                             dtype=torch.float32).to(device=x.device,
+                                                     dtype=dt)
     if cfg.pos_embedding == "sinusoidal":
         pos = batch.get("positions")
         if pos is None:
@@ -430,7 +457,7 @@ def _encoder_states(params, cfg: ModelConfig, batch, ctx=None):
 def _head(params, cfg: ModelConfig, x, ctx=None):
     xn = (W.layer_norm(params["final_norm"], x)
           if RWKV in cfg.block_pattern
-          else L.rms_norm(params["final_norm"], x))
+          else L.rms_norm(params["final_norm"], x, cfg.norm_eps))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = matmul(xn, head, out_dtype=torch.float32)
     if cfg.logit_softcap:
@@ -459,13 +486,15 @@ def forward_hidden(params, cfg: ModelConfig, batch,
     into one new tensor).  ``fl.distributed.make_train_step`` passes a
     list of period trees whose leaves are leaves of its backward, each
     with a slice of one preallocated stack as its ``.grad``, so that no
-    stacked copy of the gradients is made."""
+    stacked copy of the gradients is made.  A layer of kind
+    ``cfg.first_kind`` (``params["first"]``) runs before the periods."""
     with sharded_scope(ctx):
         return _forward_hidden(params, cfg, batch, collect_cache, cache_len,
                                ctx)
 
 
-def _forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx):
+def _forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx,
+                    trace=None):
     x = _embed(params, cfg, batch, ctx)
     enc = _encoder_states(params, cfg, batch, ctx)
     S = x.shape[1]
@@ -473,7 +502,7 @@ def _forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     kw = dict(enc=enc, q_pos=q_pos, collect_cache=collect_cache,
-              cache_len=cache_len, ctx=ctx)
+              cache_len=cache_len, ctx=ctx, trace=trace)
 
     def run(p, kind, x, aux):
         if remat:
@@ -484,6 +513,8 @@ def _forward_hidden(params, cfg, batch, collect_cache, cache_len, ctx):
         return x, aux + a, st
 
     cache = {}
+    if "first" in params:
+        x, aux, _ = run(params["first"], cfg.first_kind, x, aux)
     # a stack is unbound once (a view per period would add a zero-filled
     # copy of the whole stack per period to its backward); the train
     # step's list of periods is used as it is
@@ -534,16 +565,19 @@ def loss_fn(params, cfg: ModelConfig, batch, label_smoothing: float = 0.0,
         return _loss_fn(params, cfg, batch, label_smoothing, ctx)
 
 
-def _loss_fn(params, cfg, batch, label_smoothing, ctx, obs=DISABLED):
+def _loss_fn(params, cfg, batch, label_smoothing, ctx, obs=DISABLED,
+             trace=None):
     """``loss_fn`` inside the sharded scope.  With a live ``obs`` the trunk
     and the head run under ``lm.trunk`` / ``lm.head`` spans, and a
     gradient hook on the trunk's output splits an enclosing
-    ``lm.backward`` span where the head's backward ends."""
+    ``lm.backward`` span where the head's backward ends.  ``trace`` (an
+    ``obs.LayerTrace``) goes to the layers."""
     S = batch["targets"].shape[1]
     big = S * cfg.vocab_size > (1 << 24)
     device = batch["targets"].device if obs.enabled else None
     with obs.device_span("lm.trunk", device):
-        x, aux, _ = _forward_hidden(params, cfg, batch, False, 0, ctx)
+        x, aux, _ = _forward_hidden(params, cfg, batch, False, 0, ctx,
+                                    trace)
     if obs.enabled and x.requires_grad:
         x.register_hook(obs.tracer.split_hook("lm.backward", "lm.head_bwd",
                                               "lm.trunk_bwd"))

@@ -23,11 +23,14 @@ plus ``solve_many.<backend>`` inside scheduling and ``eval`` (tagged
 with its ``cell`` in a multi-cell engine) inside ``finalize``.  The LM
 train step (``fl.distributed.make_train_step``): ``lm.step`` over
 ``lm.trunk``, ``lm.head``, ``lm.backward`` (``lm.head_bwd`` then
-``lm.trunk_bwd``) and ``lm.update``.
+``lm.trunk_bwd``) and ``lm.update``; its latent-attention layers report
+to a ``LayerTrace`` (``layers``): ``lm.mla``, ``lm.moe`` (>
+``lm.moe.route``, ``lm.moe.experts``), ``lm.mla_bwd``, ``lm.moe_bwd``.
 """
 from repro_torch.obs.config import ObsConfig  # noqa: F401
 from repro_torch.obs.core import (DEFAULT, DEFAULT_RING,  # noqa: F401
                                   DISABLED, Obs, enable_default, from_config)
+from repro_torch.obs.layers import LayerTrace, in_backward  # noqa: F401
 from repro_torch.obs.metrics import (COUNT_BUCKETS,  # noqa: F401
                                      TIME_BUCKETS, Counter, Gauge,
                                      Histogram, Registry)

@@ -205,6 +205,24 @@ class Tracer:
                 top.split(first, second)
         return hook
 
+    def grad_span_hooks(self, name: str, device):
+        """(begin, end): tensor gradient hooks that open a span ``name``
+        (with CUDA events on a CUDA ``device``) when the first fires and
+        close it when the second fires, each once: a span of the backward
+        between two tensors' gradients.  The spans that open meanwhile
+        (a recompute's) are its children."""
+        span = _Span(self, name, None, device.type == "cuda")
+        state = []
+
+        def begin(grad):
+            if not state:
+                state.append(span.__enter__())
+
+        def end(grad):
+            if len(state) == 1:
+                state.append(span.__exit__(None, None, None))
+        return begin, end
+
     def trace(self, name: str):
         """Decorator form — the live check happens per call, so a
         function decorated while tracing is off becomes live the moment

@@ -1092,3 +1092,96 @@ def test_attention_kernels_default_offset_is_bitwise_on_card(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(one, two))
     with pytest.raises(ValueError, match="see no key"):
         flash_attention_bwd_cuda(q, k, v, do, q_offset=-1)
+
+
+# Latent attention's head pair: q and k at 192 (nope 128 | rope 64), v at
+# 128, the scale 1/sqrt(192).  B, H, S, T, dtype: off the kernels' tiles,
+# T > S (queries right-aligned), and in bf16 the cell's 4096 tokens.
+MLA_CASES = [(1, 2, 257, 257, "bfloat16"), (2, 3, 100, 300, "bfloat16"),
+             (1, 16, 4096, 4096, "bfloat16"), (1, 2, 257, 257, "float32"),
+             (2, 3, 100, 300, "float32")]
+
+
+def mla_inputs(rng, B, H, S, T, dtype, device):
+    """q [B,H,S,192], k [B,H,T,192], v [B,H,T,128] and dO [B,H,S,128] as
+    the model lays them out: v a view of the [k_nope | v] projection."""
+    q = torch.as_tensor(randn(rng, (B, S, H, 192)), device=device)
+    kv = torch.as_tensor(randn(rng, (B, T, H, 256)), device=device)
+    kr = torch.as_tensor(randn(rng, (B, T, 1, 64)), device=device)
+    do = torch.as_tensor(randn(rng, (B, S, H, 128)), device=device)
+    q, kv, kr, do = (x.to(dtype) for x in (q, kv, kr, do))
+    k = torch.cat([kv[..., :128], kr.expand(B, T, H, 64)], dim=-1)
+    return [x.transpose(1, 2) for x in (q, k, kv[..., 128:], do)]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,H,S,T,dtype", MLA_CASES)
+def test_attention_kernels_mla_pair_on_card(cuda, B, H, S, T, dtype):
+    """K4 and K4-bwd at (192, 128) against the plain version: bf16 at
+    ``BF16_ATTN_TOL``, f32 at atol 3e-5 / rtol 1e-4; the launches counted
+    with v's shape; two backward calls bitwise equal."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    dt = getattr(torch, dtype)
+    q, k, v, do = mla_inputs(np.random.default_rng(S + T), B, H, S, T, dt,
+                             cuda)
+    tol = BF16_ATTN_TOL if dt == torch.bfloat16 else (3e-5, 1e-4)
+    common.reset_launches()
+    out = flash_attention_cuda(q, k, v)
+    got = flash_attention_bwd_cuda(q, k, v, do)
+    again = flash_attention_bwd_cuda(q, k, v, do)
+    torch.cuda.synchronize()
+    assert out.shape == (B, H, S, 128) and out.dtype == dt
+    assert common.SHAPES["attention"] == {
+        (tuple(q.shape), tuple(k.shape), (1, 0), tuple(v.shape)): 1}
+    assert common.LAUNCHES["attention_bwd"] == 2
+    torch.testing.assert_close(out.float(), tref.attention_ref(q, k, v)
+                               .float(), atol=tol[0], rtol=tol[1])
+    want = tref.attention_bwd_ref(q, k, v, do)
+    for name, g, w, g2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.shape == w.shape and torch.equal(g, g2), name
+        torch.testing.assert_close(g.float(), w.float(), atol=tol[0],
+                                   rtol=tol[1], msg=name)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("counts", [[3000, 2500, 4000, 0, 3100, 2900, 3072, 1],
+                                    [0, 0, 0, 0, 0, 0, 0, 0],
+                                    [24576, 0, 0, 0, 0, 0, 0, 0]])
+def test_grouped_products_on_card(cuda, counts):
+    """The held experts' grouped products (``moe.grouped_mm``, bf16) and
+    their backward against ``torch.bmm`` of each expert's rows, at the
+    cell's widths (d 2048, d_ff 1408, 8 experts; an expert with no row,
+    all rows on one expert); rows past the runs never reach a gradient,
+    even holding NaN."""
+    from repro_torch.models.moe import grouped_mm
+    rng = np.random.default_rng(len(counts) + sum(counts))
+    d, n, E = 2048, 1408, len(counts)
+    N = 32768
+    x = torch.as_tensor(randn(rng, (N, d)), device=cuda).to(torch.bfloat16)
+    w = torch.as_tensor(randn(rng, (E, d, n), d ** -0.5),
+                        device=cuda).to(torch.bfloat16)
+    offs = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=cuda)
+    tot = int(sum(counts))
+    xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    out = grouped_mm(xl, wl, offs)
+    g = torch.as_tensor(randn(rng, (N, n)), device=cuda).to(torch.bfloat16)
+    g[tot:] = float("nan")
+    out.backward(g)
+    torch.cuda.synchronize()
+    lo = 0
+    for e, c in enumerate(counts):
+        xe = x[lo:lo + c].float().requires_grad_(True)
+        we = w[e].float().requires_grad_(True)
+        ye = torch.bmm(xe[None], we[None])[0]
+        ye.backward(g[lo:lo + c].float())
+        torch.testing.assert_close(out[lo:lo + c].float(), ye, atol=2e-2,
+                                   rtol=1e-2)
+        torch.testing.assert_close(xl.grad[lo:lo + c].float(), xe.grad,
+                                   atol=2e-2, rtol=1e-2)
+        torch.testing.assert_close(wl.grad[e].float(), we.grad,
+                                   atol=1e-1 + 1e-2 * float(
+                                       we.grad.abs().max()), rtol=1e-2)
+        lo += c
+    assert torch.isfinite(wl.grad).all()

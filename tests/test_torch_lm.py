@@ -37,7 +37,7 @@ from repro.models import rglru as JR
 from repro.models import rwkv6 as JW
 from repro.models import transformer as JT
 from repro_torch import convert
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import get_config, list_archs, port_archs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as TL
 from repro_torch.models import rglru as TR
@@ -123,8 +123,10 @@ def j_to_t(jcfg):
 
 def test_configs_and_registry_match_reference():
     """All ten architectures, and their reduced() forms, equal the
-    reference's; the registry builds each."""
+    reference's; the registry builds each; the port's own names are
+    exactly moonlight-16b-a3b."""
     assert list_archs() == j_list_archs() and len(list_archs()) == 10
+    assert set(port_archs()) - set(list_archs()) == {"moonlight-16b-a3b"}
     for arch in list_archs():
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             j_get_config(arch))
