@@ -6,10 +6,10 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
   1. builds the port's kernels from the sources in this checkout: the
-     eight CUDA C++ sources (``wemd``, ``persample_gradnorm``,
+     nine CUDA C++ sources (``wemd``, ``persample_gradnorm``,
      ``flash_attention``, ``flash_attention_bwd``, ``wkv``, ``wkv_bwd``,
-     ``rglru_scan``, which also holds the RG-LRU backward, and
-     ``head_split``) with one nvcc each, all at once; prints ptxas's
+     ``rglru_scan``, which also holds the RG-LRU backward, ``head_split``
+     and ``moe_rows``) with one nvcc each, all at once; prints ptxas's
      registers, spills and warnings for the kernels of every source;
   2. holds every kernel against its plain PyTorch version on the card,
      at ``tests/test_kernels.py``'s shape sweep and tolerances and at the
@@ -181,8 +181,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      against their plain versions (``BF16_ATTN_TOL``, ``F32_ATTN_TOL``);
      one federated train step of the cell's cut (``MLA_CUT``: experts
      0-7 of 64, 20480 ids; all 27 layers) over 8 x 4096 tokens, its
-     launches ``train_step_launches`` at that length and K4 / K4-bwd at
-     ``MLA_SHAPE`` alone, a second step from the same seed bitwise equal;
+     launches ``train_step_launches`` at that length (K8's four entry
+     points 52 / 52 / 26 / 26) and K4 / K4-bwd at ``MLA_SHAPE`` alone, a
+     second step from the same seed bitwise equal;
   9. times each kernel at the shapes of its last main-path launch (the
      LM kernels at their prefill shapes, the backward kernels at the
      train step's (K5-bwd from the forward's chunk states, no library
@@ -199,9 +200,12 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      qwen2-7b (GQA group 7), qwen3-moe-235b-a22b (group 16) and
      llama-3.2-vision-11b's cross layers, attention and its backward at
      ``MLA_SHAPE`` with phase 8d's launches, rows
-     ``attention@moonlight-16b-a3b`` and ``attention_bwd@...``, and the
+     ``attention@moonlight-16b-a3b`` and ``attention_bwd@...``, the
      head's split at the
-     benchmark's rwkv6-3b head chunk, ``HEAD_CHUNK``)
+     benchmark's rwkv6-3b head chunk, ``HEAD_CHUNK``, and the held MoE's
+     dispatch and combine (K8's four entry points in a row, once each)
+     at the cell's ``MOE_ROWS_SHAPE`` on a seeded routing, row
+     ``moe_rows@moonlight-16b-a3b``)
      beside its plain version, one
      library call where one computes the same function (``cdist`` for
      the WEMD scans, ``scaled_dot_product_attention`` under the window
@@ -221,7 +225,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
      (``parts_ms``) and the device time of each of its launches
      (``device_kernels``); for the head's split the head's three
      products there as f32 and as the bf16 route (``products_ms``,
-     ``head_products``); for every kernel the share of the bound
+     ``head_products``); for K8 each entry point's ms, device ms and
+     bound (``entries``); for every kernel the share of the bound
      (``bound_share``, bound over device time).
 
 Before the last line come a JSON object with one entry per kernel and
@@ -270,13 +275,19 @@ TPU_KERNELS = {
     # leaves that product to XLA, so the split replaces no TPU kernel
     "head_split": "none (the f32 LM head's cotangent split into three "
                   "bf16 terms)",
+    # the held MoE's dispatch and combine: the JAX package gathers into
+    # capacity buffers with XLA
+    "moe_rows": "none (the held-expert MoE's dispatch and combine)",
 }
 # kernels launched by the train step alone, timed at its shapes
 TRAIN_KERNELS = ("attention_bwd", "rglru_bwd", "wkv_bwd", "head_split")
+# kernels timed at the moonlight-silos cell's shapes alone (phase 8d)
+MLA_KERNELS = ("moe_rows",)
 FL_KERNELS = ("wemd_add", "wemd_swap", "persample_gradnorm")
 # the kernels' symbols in a profiler trace
 PORT_KERNEL_SYMBOLS = ("wemd_", "psg_kernel", "flash_", "wkv_chunked",
-                       "rglru_scan", "attn_bwd_", "wkv_bwd_", "head_split_")
+                       "rglru_scan", "attn_bwd_", "wkv_bwd_", "head_split_",
+                       "moe_rows_")
 CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {
     "wemd_add": ("cuda", CSRC + "wemd.cu"),
@@ -289,6 +300,7 @@ SOURCES = {
     "rglru_bwd": ("cuda", CSRC + "rglru_scan.cu"),
     "wkv_bwd": ("cuda", CSRC + "wkv_bwd.cu"),
     "head_split": ("cuda", CSRC + "head_split.cu"),
+    "moe_rows": ("cuda", CSRC + "moe_rows.cu"),
 }
 # K5-bwd against the plain backward in f64: on each gradient the kernel's
 # max abs error at most WKV_BWD_ERR_MULT times the f32 plain version's
@@ -528,6 +540,9 @@ def bound(name, shapes, itemsize=4):
         # reads the f32 cotangent, writes its three bf16 terms
         (M, N), = shapes
         nbytes, ops = 10 * M * N, 0
+    elif name == "moe_rows":
+        # K8's four entry points once each
+        nbytes, ops = sum(moe_rows_bytes(shapes, itemsize).values()), 0
     elif name == "attention":
         # s takes 2 hd FLOPs a visible pair, the output 2 hdv
         B, H, S, hd, KV, T, hdv, kw = attn_dims(shapes)
@@ -710,6 +725,7 @@ def phase_build(torch, dev):
     from repro_torch.kernels import common
     from repro_torch.kernels import flash_attention as K4
     from repro_torch.kernels import head_split as K7
+    from repro_torch.kernels import moe_rows as K8
     from repro_torch.kernels import persample_gradnorm as K3
     from repro_torch.kernels import rglru_scan as K6
     from repro_torch.kernels import rwkv_scan as K5
@@ -719,10 +735,11 @@ def phase_build(torch, dev):
         for f in [pool.submit(fn) for fn in (K12._launchers, K3._launcher,
                                              K4._launcher, K4._bwd_launcher,
                                              K5._launcher, K5._bwd_launcher,
-                                             K6._launcher, K7._launcher)]:
+                                             K6._launcher, K7._launcher,
+                                             K8._launchers)]:
             f.result()
     K6._bwd_launcher()                      # rglru_scan.cu's second entry
-    log(f"build: nvcc of 8 sources in parallel "
+    log(f"build: nvcc of 9 sources in parallel "
         f"{time.perf_counter() - t0:.2f} s (" + ", ".join(
             f"{k} {v:.2f} s" for k, v in common.BUILD_SECONDS.items()) + ")")
     log("ptxas, wemd.cu: " + ptxas_summary(
@@ -735,7 +752,8 @@ def phase_build(torch, dev):
             for dt, route in ((1, "bf16"), (0, "f32"))
             for hd in K4.HEAD_SIZES))
     for src in ("flash_attention_bwd.cu", "wkv.cu", "wkv_bwd.cu",
-                "rglru_scan.cu", "persample_gradnorm.cu", "head_split.cu"):
+                "rglru_scan.cu", "persample_gradnorm.cu", "head_split.cu",
+                "moe_rows.cu"):
         log(f"ptxas, {src}: "
             + ptxas_summary(common.BUILD_LOGS.get(src, "")))
 
@@ -758,6 +776,8 @@ def ptxas_summary(text: str) -> str:
             a = re.search(r"attn_bwd_(dq|dkv)IfLi(\d+)E", line)
             aw = re.search(r"attn_bwd_(dq|dkv)_wgmmaILi(\d+)E", line)
             p = re.search(r"psg_kernelI([xi])Lb([01])E", line)
+            mr = re.search(r"\dmoe_rows_(\w+?)I(13__nv_bfloat16|f)Li(\d)E",
+                           line)
             if m:
                 name = (f"{'bf16 wgmma' if m[1] == 'wgmma' else 'f32'} "
                         f"hd{m[2]}")
@@ -782,6 +802,9 @@ def ptxas_summary(text: str) -> str:
                 name = "head_split 16-byte groups"
             elif "head_split_scalar" in line:
                 name = "head_split one element a step"
+            elif mr:
+                name = (f"moe_rows {mr[1]} "
+                        f"{'f32' if mr[2] == 'f' else 'bf16'} x{mr[3]}")
             elif p:
                 name = (f"psg int{64 if p[1] == 'x' else 32} labels, "
                         f"{'16-byte' if p[2] == '1' else '4-byte'} h")
@@ -2511,7 +2534,9 @@ def train_step_launches(cfg, seq=TRAIN_SEQ):
     a layer that runs attention (global, local, cross and latent); and
     for a bf16 config the head's split (K7) once a head chunk (the whole
     sequence where seq x vocab is at most 2**24, else chunks of
-    ``CE_CHUNK``)."""
+    ``CE_CHUNK``); for each layer of the held MoE (kind ``MLA``), K8's
+    dispatch and combine twice (forward and recompute) and their backward
+    once."""
     from repro_torch.configs.base import (CROSS_ATTN, GLOBAL_ATTN,
                                           LOCAL_ATTN, MLA, MLA_DENSE)
     from repro_torch.models.transformer import CE_CHUNK
@@ -2522,6 +2547,10 @@ def train_step_launches(cfg, seq=TRAIN_SEQ):
                                       MLA, MLA_DENSE)
                 for i in range(cfg.num_layers))
         out = {"attention": 2 * n, "attention_bwd": n}
+    n_moe = sum(cfg.layer_kind(i) == MLA for i in range(cfg.num_layers))
+    if n_moe:
+        out.update(moe_dispatch=2 * n_moe, moe_combine=2 * n_moe,
+                   moe_combine_bwd=n_moe, moe_dispatch_bwd=n_moe)
     if cfg.dtype == cfg.param_dtype == "bfloat16":
         big = seq * cfg.vocab_size > 1 << 24
         out["head_split"] = -(-seq // CE_CHUNK) if big else 1
@@ -3256,7 +3285,8 @@ def phase_mla(torch, dev):
     ``train_step_launches`` at ``MLA_SEQ``, K4 and K4-bwd launched at
     ``MLA_SHAPE`` alone; a second step from the same seed bitwise equal
     (loss, grad norm, counters, every param).  Returns the step's
-    launches at ``MLA_SHAPE``: {"attention": n, "attention_bwd": n}."""
+    launches at ``MLA_SHAPE`` ({"attention": n, "attention_bwd": n}) and
+    K8's ({entry point: n})."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3320,7 +3350,105 @@ def phase_mla(torch, dev):
     del params, first
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: want[k] for k in ("attention", "attention_bwd")}
+    return ({k: want[k] for k in ("attention", "attention_bwd")},
+            {k: want[k] for k in MOE_ROWS_ENTRIES})
+
+
+# K8 at the cell's shape: T = 8 x 4096 tokens, k 6, d 2048, bf16, experts
+# 0-7 of 64 held, each token's experts its top 6 by seeded uniform scores
+# (about T k / 8 = 24576 held rows, as in the cell's layers)
+MOE_ROWS_DIMS = (MLA_BATCH * MLA_SEQ, 6, 2048)
+MOE_ROWS_ENTRIES = ("moe_dispatch", "moe_combine", "moe_combine_bwd",
+                    "moe_dispatch_bwd")
+
+
+def moe_rows_bytes(shapes, itemsize=2):
+    """{entry point: bytes} of K8 at ``shapes`` ((T, k, d), (H, Th)): H
+    held rows, Th tokens with a held slot; each input read once, each
+    output written once (slot and src int64, w and dw f32, the rows
+    ``itemsize`` bytes an element)."""
+    (T, k, d), (H, Th) = shapes
+    b = itemsize
+    return {"moe_dispatch": 2 * H * d * b + 8 * H + 4,
+            "moe_combine": (H + 2 * T) * d * b + 12 * T * k,
+            "moe_combine_bwd": (Th + 2 * H) * d * b + 16 * T * k,
+            "moe_dispatch_bwd": (H + T) * d * b + 8 * T * k}
+
+
+def moe_rows_routing(torch, dev):
+    """The seeded routing's layout at ``MOE_ROWS_DIMS``: (slot, src, offs,
+    shapes ((T, k, d), (H, Th)))."""
+    from repro_torch.models.moe import held_layout
+    T, k, d = MOE_ROWS_DIMS
+    g = torch.Generator(device=dev).manual_seed(33)
+    scores = torch.rand((T, 64), generator=g, device=dev)
+    experts = torch.sort(scores, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+    slot, src, offs, _ = held_layout(experts, 0, 8)
+    held = int(offs[-1])
+    tokens = int((slot < T * k).any(-1).sum())
+    return slot, src, offs, ((T, k, d), (held, tokens))
+
+
+def moe_rows_calls(torch, dev, shp):
+    """(kernel call, plain call, tolerances, {entry point: its kernel
+    call}) for K8 at ``shp`` (``moe_rows_routing``'s): the four entry
+    points in a row on bf16 rows from a seed, the buffers' rows past the
+    held ones NaN.  Both calls return (x_buf's held rows, out, d_buf's
+    held rows, dw, dx): bitwise, dw within 1e-5 of its largest sum of
+    |g| |y|."""
+    from repro_torch.kernels import moe_rows as K8
+    slot, src, offs, shapes = moe_rows_routing(torch, dev)
+    require(shapes == shp, f"moe_rows: the routing gives {shapes}, not {shp}")
+    (T, k, d), (H, _) = shp
+    g = torch.Generator(device=dev).manual_seed(34)
+
+    def rows(n):
+        return torch.randn((n, d), generator=g, device=dev).to(
+            torch.bfloat16)
+    x, shared, dy = rows(T), rows(T), rows(T)
+    y_buf, d_xbuf = rows(T * k), rows(T * k)
+    y_buf[H:] = float("nan")
+    d_xbuf[H:] = float("nan")
+    w = torch.rand((T, k), generator=g, device=dev) + 0.1
+    entries = {"moe_dispatch": lambda: K8.dispatch_cuda(x, src, offs),
+               "moe_combine": lambda: K8.combine_cuda(y_buf, w, slot,
+                                                      shared),
+               "moe_combine_bwd": lambda: K8.combine_bwd_cuda(dy, y_buf, w,
+                                                              slot),
+               "moe_dispatch_bwd": lambda: K8.dispatch_bwd_cuda(d_xbuf,
+                                                                slot)}
+
+    def kern():
+        x_buf = entries["moe_dispatch"]()
+        out = entries["moe_combine"]()
+        d_buf, dw = entries["moe_combine_bwd"]()
+        return x_buf[:H], out, d_buf[:H], dw, entries["moe_dispatch_bwd"]()
+
+    def plain():
+        d_buf, dw = K8.combine_bwd_ref(dy, y_buf, w, slot)
+        return (K8.dispatch_ref(x, src, offs)[:H],
+                K8.combine_ref(y_buf, w, slot, shared), d_buf[:H], dw,
+                K8.dispatch_bwd_ref(d_xbuf, slot))
+    mag = float(K8.combine_bwd_ref(dy.abs(), y_buf.abs(), w, slot)[1].max())
+    tols = [(0.0, 0.0)] * 3 + [(1e-5 * mag, 0.0), (0.0, 0.0)]
+    return kern, plain, tols, entries
+
+
+def moe_rows_entries(torch, dev, shp, prof_ok):
+    """{entry point: {ms, device_ms, bound_ms}} of K8 at ``shp``, each
+    timed alone."""
+    from repro_torch.roofline import HBM_BW
+    *_, entries = moe_rows_calls(torch, dev, shp)
+    nbytes = moe_rows_bytes(shp)
+    out = {name: {"ms": time_ms(torch, fn),
+                  "device_ms": device_ms(torch, fn) if prof_ok else None,
+                  "bound_ms": nbytes[name] / HBM_BW * 1e3}
+           for name, fn in entries.items()}
+    log(f"moe_rows at {shp}, each entry point alone: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (device {v['device_ms']}, bound "
+        f"{v['bound_ms']:.4f})" for k, v in out.items()))
+    return out
 
 
 def timing_case(torch, dev, name, shp):
@@ -3383,6 +3511,9 @@ def timing_case(torch, dev, name, shp):
         d = torch.randn((M, N), generator=g, device=dev) / (M * N)
         return (lambda: head_split_cuda(d), lambda: split3_ref(d), None,
                 (0.0, 0.0), 4)
+    if name == "moe_rows":         # bitwise its plain version but dw
+        kern, plain, tols, _ = moe_rows_calls(torch, dev, shp)
+        return kern, plain, None, tols, 2
     if name == "rglru_bwd":
         from repro_torch.kernels.rglru_scan import rglru_bwd_cuda
         (B, T, D), = shp
@@ -3627,6 +3758,8 @@ def phase_timing(torch, dev, cases, prof_ok):
                                                      prof_ok))
         if name == "head_split":
             row["products_ms"] = head_products(torch, dev)
+        if name == "moe_rows":
+            row["entries"] = moe_rows_entries(torch, dev, shp, prof_ok)
         if name == "attention_bwd":
             # the GQA sum's part counts, and the time of each launch
             row["parts_ms"] = attention_bwd_parts(torch, dev, shp)
@@ -3714,11 +3847,12 @@ def main() -> int:
     log(f"[sharded] done in {time.perf_counter() - t0:.2f} s; launches "
         f"{sharded}")
     t0 = time.perf_counter()
-    mla_launches = phase_mla(torch, dev)
+    mla_launches, moe_launches = phase_mla(torch, dev)
     log(f"[latent attention] done in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     cases = [(name, name, shapes[name], launches[name])
-             for name in TPU_KERNELS if name not in TRAIN_KERNELS]
+             for name in TPU_KERNELS
+             if name not in TRAIN_KERNELS + MLA_KERNELS]
     # the training phase: the backward kernels at the train step's shapes,
     # the head's split at the benchmark cell's head chunk
     tr_shapes["head_split"] = (HEAD_CHUNK[::2],)
@@ -3747,6 +3881,10 @@ def main() -> int:
     # moonlight-16b-a3b's step: K4 and K4-bwd at the (192, 128) pair
     cases += [(f"{name}@moonlight-16b-a3b", name, MLA_SHAPE, n)
               for name, n in mla_launches.items()]
+    # and the held MoE's dispatch and combine, K8's four entry points
+    cases.append(("moe_rows@moonlight-16b-a3b", "moe_rows",
+                  moe_rows_routing(torch, dev)[3],
+                  sum(moe_launches.values())))
     rows = phase_timing(torch, dev, cases, prof_ok)
     log(f"[timing] done in {time.perf_counter() - t0:.2f} s; "
         f"total {time.perf_counter() - t_all:.2f} s")

@@ -17,6 +17,10 @@
                          product on the bf16 tensor cores, its f32
                          cotangent split into three bf16 terms (replaces
                          no TPU kernel)
+  moe_rows.py            CUDA C++ (csrc/moe_rows.cu): the held-expert
+                         MoE's dispatch and combine, forward and backward,
+                         over the held assignments only (replaces no TPU
+                         kernel)
 
 ops.py dispatches on the tensor's device (and holds the autograd
 Functions that pair a kernel with its backward); ref.py holds the plain

@@ -49,9 +49,14 @@ others after them, in a scratch group), so each expert's tokens are a
 contiguous run in token order; the expert products are
 ``torch._grouped_mm`` over the runs' offsets (no padding, no host sync:
 the buffer has T k rows, every assignment's possible place, and the rows
-past the held runs are never read).  The combine sums a token's held
-slots in slot order in f32 (``_CombineHeld``), and its backward, like
-``_Dispatch``'s, gathers in a fixed order.
+past the held runs are neither written nor read).  The dispatch and the
+combine, forward and backward, are kernel K8 (``kernels/moe_rows.py``,
+``_HeldDispatch``, ``_HeldCombine``): each pass touches the held
+assignments alone, in a fixed order and without atomics.  The combine
+sums a token's held slots in slot order in f32, adds the shared experts'
+output and rounds once; its backward writes each held row's gradient and
+each weight's, the dispatch's backward sums a token's held rows in f32.
+The softmax path above shares none of it.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import moe_rows as K8
 from repro_torch.models.layers import dense_init, swiglu, swiglu_init
 from repro_torch.obs import LayerTrace, in_backward
 from repro_torch.sharding import (as_dtensor, matmul, partial_where_split,
@@ -375,35 +381,63 @@ def grouped_mm(x, w, offs):
     return torch._grouped_mm(x, w, offs=offs)
 
 
-class _CombineHeld(torch.autograd.Function):
-    """y_buf [N, d] (the sorted assignments' expert outputs; rows past
-    the held runs unwritten), w [T, k] f32, pos [T, k] (each assignment's
-    row), held [T, k], src [N] (each row's token; T for a row of no held
-    assignment), w_sorted [N] (each row's weight, 0 past the held runs)
-    -> y [T, d] f32 = sum over the held j, in slot order, of y_buf[pos[:,
-    j]] w[:, j].  Backward: d y_buf[p] = w_sorted[p] dy[src[p]]; dw[t, j]
-    = <dy[t], y_buf[pos[t, j]]> where held, else 0."""
+def held_layout(experts, lo: int, nh: int):
+    """experts [T, k] -> the sorted buffer's layout for the held experts
+    [lo, lo + nh): (slot [T, k], each assignment's row, N = T k where its
+    expert is not held; src [N], each row's token (rows past the held
+    runs: not read); offs [nh] int32, the runs' ends; counts [nh + 1], the
+    assignments a held expert, then the rest).  A stable sort: each
+    expert's tokens are a run in token order."""
+    T, k = experts.shape
+    N = T * k
+    local = experts.reshape(-1) - lo
+    held = (local >= 0) & (local < nh)
+    key = torch.where(held, local, nh)
+    order = torch.argsort(key, stable=True)
+    counts = _counts(key, nh + 1, torch.long)
+    offs = torch.cumsum(counts[:nh], 0).to(torch.int32)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(N, device=experts.device)
+    slot = torch.where(held, rank, N).reshape(T, k)
+    return slot, order // k, offs, counts
+
+
+class _HeldDispatch(torch.autograd.Function):
+    """x [T, d] -> x_buf [T k, d]: row p < offs[-1] holds token src[p],
+    the rows past it are left unwritten.  Backward: dx[t] = the sum over
+    the held j, in slot order, of d x_buf[slot[t, j]], in f32 and rounded
+    once (``moe_rows.dispatch`` / ``dispatch_bwd``)."""
 
     @staticmethod
-    def forward(ctx, y_buf, w, pos, held, src, w_sorted):
-        ctx.save_for_backward(y_buf, pos, held, src, w_sorted)
-        y = torch.zeros((pos.shape[0], y_buf.shape[1]), dtype=torch.float32,
-                        device=y_buf.device)
-        for j in range(pos.shape[1]):
-            y = y + torch.where(held[:, j, None],
-                                y_buf[pos[:, j]].float() * w[:, j, None],
-                                0.0)
-        return y
+    def forward(ctx, x, src, slot, offs):
+        ctx.save_for_backward(slot)
+        return K8.dispatch(x, src, offs)
 
     @staticmethod
-    def backward(ctx, dy):
-        y_buf, pos, held, src, w_sorted = ctx.saved_tensors
-        dw = torch.stack([torch.where(held[:, j], (dy * y_buf[pos[:, j]]
-                                                   .float()).sum(-1), 0.0)
-                          for j in range(pos.shape[1])], dim=1)
-        dy_pad = torch.cat([dy, dy.new_zeros((1, dy.shape[1]))], dim=0)
-        d_buf = (dy_pad[src] * w_sorted[:, None]).to(y_buf.dtype)
-        return d_buf, dw, None, None, None, None
+    def backward(ctx, g):
+        slot, = ctx.saved_tensors
+        return K8.dispatch_bwd(g.contiguous(), slot), None, None, None
+
+
+class _HeldCombine(torch.autograd.Function):
+    """y_buf [T k, d] (the sorted assignments' expert outputs), w [T, k]
+    f32, slot [T, k], shared [T, d] -> y [T, d] in shared's dtype: the sum
+    over the held j, in slot order, of y_buf[slot[:, j]] w[:, j] in f32,
+    plus shared, rounded once.  Backward (``moe_rows.combine_bwd``): d
+    y_buf[slot[t, j]] = w[t, j] dy[t]; dw[t, j] = <dy[t], y_buf[slot[t,
+    j]]> where held, else 0; d shared = dy."""
+
+    @staticmethod
+    def forward(ctx, y_buf, w, slot, shared):
+        ctx.save_for_backward(y_buf, w, slot)
+        return K8.combine(y_buf, w, slot, shared)
+
+    @staticmethod
+    def backward(ctx, g):
+        y_buf, w, slot = ctx.saved_tensors
+        g = g.contiguous()
+        d_buf, dw = K8.combine_bwd(g, y_buf, w, slot)
+        return d_buf, dw, None, g
 
 
 def moe_ffn_held(params, cfg, x, trace=None):
@@ -415,26 +449,14 @@ def moe_ffn_held(params, cfg, x, trace=None):
     trace = trace or LayerTrace()
     B, S, d = x.shape
     T, k = B * S, cfg.experts_per_token
-    nh, lo = cfg.num_held, cfg.expert_lo
-    N = T * k
+    nh = cfg.num_held
     xf = x.reshape(T, d)
     with trace.span("lm.moe.route"):
         logits = matmul(xf.to(torch.float32), params["router"])
         w, experts = sigmoid_routing(logits, params["router_bias"], k,
                                      cfg.routed_scaling)
-        local = experts.reshape(-1) - lo
-        held = (local >= 0) & (local < nh)
-        key = torch.where(held, local, nh)
-        order = torch.argsort(key, stable=True)
-        counts = _counts(key, nh + 1, torch.long)
-        offs = torch.cumsum(counts[:nh], 0).to(torch.int32)
-        rank = torch.empty_like(order)
-        rank[order] = torch.arange(N, device=x.device)
-        slot = torch.where(held, rank, N)       # a row, or the scratch N
-        token = torch.arange(N, device=x.device) // k
-        src = torch.where(held[order], token[order], T)
-        w_sorted = torch.where(held, w.detach().reshape(-1), 0.0)[order]
-        x_buf = _Dispatch.apply(xf, src, slot.reshape(T, k))
+        slot, src, offs, counts = held_layout(experts, cfg.expert_lo, nh)
+        x_buf = _HeldDispatch.apply(xf, src, slot, offs)
     if not in_backward():
         trace.moe.append((counts[:nh].sum(), counts[:nh].max()))
         if trace.routing is not None:
@@ -443,8 +465,5 @@ def moe_ffn_held(params, cfg, x, trace=None):
         h = F.silu(grouped_mm(x_buf, params["w_gate"], offs)) \
             * grouped_mm(x_buf, params["w_up"], offs)
         y_buf = grouped_mm(h, params["w_down"], offs)
-    held2 = held.reshape(T, k)
-    y = _CombineHeld.apply(y_buf, w, torch.where(held, rank, 0).reshape(
-        T, k), held2, src, w_sorted)
-    y = y + swiglu(params["shared"], x).reshape(T, d).float()
-    return y.to(x.dtype).reshape(B, S, d)
+    shared = swiglu(params["shared"], x).reshape(T, d)
+    return _HeldCombine.apply(y_buf, w, slot, shared).reshape(B, S, d)

@@ -1185,3 +1185,170 @@ def test_grouped_products_on_card(cuda, counts):
                                        we.grad.abs().max()), rtol=1e-2)
         lo += c
     assert torch.isfinite(wl.grad).all()
+
+
+# K8, the held-expert MoE's dispatch and combine, at a cut of the
+# moonlight-silos cell's shape: d 2048, k 6, experts 0-7 of 64 held,
+# T = 4096 tokens; seeded, none and every assignment held
+MOE_ROWS_CASES = ["seeded", "none_held", "all_held"]
+
+
+def moe_rows_inputs(case, dtype, device, Tn=4096, d=2048):
+    """The layout of a routing and the four kernels' inputs; the buffer
+    rows at or past n_held hold NaN."""
+    from _moe_gather import routing
+
+    from repro_torch.models.moe import held_layout
+    gen = torch.Generator().manual_seed(MOE_ROWS_CASES.index(case))
+    experts, w = routing(case, Tn, 64, 6, 8, gen, device)
+    slot, src, offs, _ = held_layout(experts, 0, 8)
+    n = int(offs[-1])
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(device, dtype)
+    x, shared, g = rnd(Tn, d), rnd(Tn, d), rnd(Tn, d)
+    y_buf, d_xbuf = rnd(Tn * 6, d), rnd(Tn * 6, d)
+    y_buf[n:] = float("nan")
+    d_xbuf[n:] = float("nan")
+    return n, slot, src, offs, w, x, shared, g, y_buf, d_xbuf
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", MOE_ROWS_CASES)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_rows_kernels_on_card(cuda, case, dtype):
+    """Each entry point against its plain version: bitwise (dw to f32
+    rounding of the sum of |g| |y|), two calls bitwise equal, one launch
+    each, no NaN from the rows past n_held."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels import moe_rows as K8
+    n, slot, src, offs, w, x, shared, g, y_buf, d_xbuf = moe_rows_inputs(
+        case, getattr(torch, dtype), cuda)
+    common.reset_launches()
+    calls = {"moe_dispatch": lambda: (K8.dispatch_cuda(x, src, offs)[:n],),
+             "moe_combine": lambda: (K8.combine_cuda(y_buf, w, slot,
+                                                     shared),),
+             "moe_combine_bwd": lambda: [
+                 o[:n] if i == 0 else o for i, o in enumerate(
+                     K8.combine_bwd_cuda(g, y_buf, w, slot))],
+             "moe_dispatch_bwd": lambda: (K8.dispatch_bwd_cuda(d_xbuf,
+                                                               slot),)}
+    got = {name: [o.clone() for o in fn()] for name, fn in calls.items()}
+    assert dict(common.LAUNCHES) == {name: 1 for name in calls}
+    again = {name: fn() for name, fn in calls.items()}
+    d_buf, dw = K8.combine_bwd_ref(g, y_buf, w, slot)
+    want = {"moe_dispatch": [K8.dispatch_ref(x, src, offs)[:n]],
+            "moe_combine": [K8.combine_ref(y_buf, w, slot, shared)],
+            "moe_combine_bwd": [d_buf[:n], dw],
+            "moe_dispatch_bwd": [K8.dispatch_bwd_ref(d_xbuf, slot)]}
+    mag = K8.combine_bwd_ref(g.abs(), y_buf.abs(), w, slot)[1]
+    torch.cuda.synchronize()
+    for name in calls:
+        for i, (a, b, c) in enumerate(zip(got[name], want[name],
+                                          again[name])):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            assert torch.equal(a, c) and not a.isnan().any(), name
+            if name == "moe_combine_bwd" and i == 1:
+                assert bool(((a - b).abs() <= 1e-5 * mag).all()), name
+            else:
+                assert torch.equal(a, b), name
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", MOE_ROWS_CASES)
+def test_moe_rows_unwritten_rows_never_reach_the_expert_gradients_on_card(
+        cuda, case):
+    """The held experts' grouped products and their backward (bf16) with
+    the rows of x_buf and d_buf past n_held NaN, as K8 leaves them
+    unwritten, against the same rows zero-filled, as the gather
+    formulation wrote them: the expert weights' gradients and the output
+    and input gradient rows below n_held bitwise equal."""
+    from repro_torch.models.moe import grouped_mm
+    n, slot, src, offs, w, x, shared, g, y_buf, d_xbuf = moe_rows_inputs(
+        case, torch.bfloat16, cuda)
+    gen = torch.Generator().manual_seed(7)
+    ws = [(torch.randn(shape, generator=gen) * shape[1] ** -0.5).to(
+        cuda, torch.bfloat16) for shape in ((8, 2048, 1408), (8, 2048, 1408),
+                                            (8, 1408, 2048))]
+    x_buf = x.repeat(6, 1)
+    d_buf = y_buf.nan_to_num(0.0)
+
+    def run(fill):
+        xb, db = x_buf.clone(), d_buf.clone()
+        xb[n:], db[n:] = fill, fill
+        xb.requires_grad_(True)
+        leaves = [v.clone().requires_grad_(True) for v in ws]
+        h = torch.nn.functional.silu(grouped_mm(xb, leaves[0], offs)) \
+            * grouped_mm(xb, leaves[1], offs)
+        y = grouped_mm(h, leaves[2], offs)
+        grads = torch.autograd.grad(y, [xb, *leaves], db)
+        return y[:n], grads[0][:n], grads[1:]
+
+    y0, dx0, dw0 = run(0.0)
+    y1, dx1, dw1 = run(float("nan"))
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1) and torch.equal(dx0, dx1)
+    for a, b in zip(dw0, dw1):
+        assert torch.equal(a, b) and not a.isnan().any()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", MOE_ROWS_CASES)
+def test_moe_ffn_held_on_card(cuda, case):
+    """The held MoE layer on the card (bf16, through K8) against the gather
+    formulation: the output and every gradient bitwise but the router's,
+    which is held to 1e-5 of its largest entry; two runs bitwise
+    equal."""
+    import dataclasses
+
+    from _moe_gather import gather_moe_ffn_held
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import common
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(
+        get_config("moonlight-16b-a3b").reduced(
+            num_experts=64, experts_per_token=6, experts_held=8),
+        dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(20 + MOE_ROWS_CASES.index(case))
+    p = dict(T._index(T.init(gen, cfg)["blocks"], 0)["layer0"]["ffn"])
+    bias = torch.randn(64, generator=gen) * 0.05
+    if case != "seeded":
+        bias[slice(0, 6) if case == "all_held" else slice(8, 14)] += 9.0
+    p["router_bias"] = bias
+    x = torch.randn(4, 512, cfg.d_model, generator=gen).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen).to(torch.bfloat16)
+    flat = {k: v for k, v in p.items() if k != "shared"}
+    flat.update({f"shared.{k}": v for k, v in p["shared"].items()})
+
+    def run(fn):
+        ps = {k: v.to(cuda).requires_grad_(v.is_floating_point()
+                                           and k != "router_bias")
+              for k, v in flat.items()}
+        tree = {k: v for k, v in ps.items() if "." not in k}
+        tree["shared"] = {k[7:]: v for k, v in ps.items() if "." in k}
+        xs = x.to(cuda).requires_grad_(True)
+        out = fn(tree, cfg, xs)
+        names = [k for k, v in ps.items() if v.requires_grad]
+        grads = torch.autograd.grad(out, [xs, *(ps[k] for k in names)],
+                                    dy.to(cuda))
+        return out, dict(zip(["x", *names], grads))
+
+    common.reset_launches()
+    out, grads = run(M.moe_ffn_held)
+    assert {k: common.LAUNCHES[k] for k in (
+        "moe_dispatch", "moe_combine", "moe_combine_bwd",
+        "moe_dispatch_bwd")} == {"moe_dispatch": 1, "moe_combine": 1,
+                                 "moe_combine_bwd": 1, "moe_dispatch_bwd": 1}
+    out2, grads2 = run(M.moe_ffn_held)
+    want, want_g = run(gather_moe_ffn_held)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(out, want)
+    for name, gw in want_g.items():
+        assert torch.equal(grads[name], grads2[name]), name
+        if name == "router":
+            torch.testing.assert_close(grads[name], gw, rtol=1e-5,
+                                       atol=1e-5 * float(gw.abs().max()))
+        else:
+            assert torch.equal(grads[name], gw), name

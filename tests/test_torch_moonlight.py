@@ -330,15 +330,31 @@ def test_reference_agrees_with_the_benchmark_copy():
 
 def test_chip_smoke_holds_the_cells_launches_and_bounds():
     """``chip_smoke.py``'s phase 8d at the benchmark cell's cut: a step
-    launches K4 twice and K4-bwd once in each of the 27 layers and K7 once
-    a head chunk of 512; the bounds at the (192, 128) pair count 2 (hd +
-    hdv) and 2 (3 hd + 2 hdv) FLOPs a causal pair at the bf16 peak."""
+    launches K4 twice and K4-bwd once in each of the 27 layers, K7 once
+    a head chunk of 512, and K8's dispatch and combine twice and their
+    backward once in each of the 26 MoE layers; the bounds at the (192,
+    128) pair count 2 (hd + hdv) and 2 (3 hd + 2 hdv) FLOPs a causal pair
+    at the bf16 peak, K8's its bytes at the HBM's rate, at the cell's T,
+    k and d."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
-    from repro_torch.roofline import PEAK_FLOPS
+    from repro_torch.roofline import HBM_BW, PEAK_FLOPS
     cfg = dataclasses.replace(get_config("moonlight-16b-a3b"), **C.MLA_CUT)
     assert C.train_step_launches(cfg, C.MLA_SEQ) == {
-        "attention": 54, "attention_bwd": 27, "head_split": 8}
+        "attention": 54, "attention_bwd": 27, "head_split": 8,
+        "moe_dispatch": 52, "moe_combine": 52, "moe_combine_bwd": 26,
+        "moe_dispatch_bwd": 26}
+    T, k, d = C.MOE_ROWS_DIMS
+    assert (T, k, d) == (C.MLA_BATCH * C.MLA_SEQ, cfg.experts_per_token,
+                         cfg.d_model)
+    H, Th = 24576, 18000
+    row = (H + T) * d * 2
+    ms, by = C.bound("moe_rows", ((T, k, d), (H, Th)), 2)
+    assert by == "bytes"
+    assert ms == pytest.approx(
+        (2 * H * d * 2 + 8 * H + 4 + (H + 2 * T) * d * 2 + 12 * T * k
+         + (Th + 2 * H) * d * 2 + 16 * T * k + row + 8 * T * k)
+        / HBM_BW * 1e3)
     B, H, S, hd, KV, T, hdv, kw = C.attn_dims(C.MLA_SHAPE)
     assert (hd, hdv, kw["scale"]) == (192, 128, 1 / math.sqrt(192))
     pairs = B * H * S * (S + 1) // 2
